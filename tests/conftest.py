@@ -14,6 +14,12 @@ from repro.configs import get_smoke_config  # noqa: E402
 from repro.models import build_model  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips inside the test "
+        "without one")
+
+
 @pytest.fixture(scope="session")
 def qwen_smoke():
     """A tiny trained-ish dense model shared across conversion tests."""
