@@ -6,18 +6,30 @@
 
 Phases (any failure raises and exits nonzero; no phase catches its own):
   1. device and build: the card's name and power limit (nvidia-smi), then
-     the CUDA kernels built from ``src/repro_torch/kernels/csrc`` with nvcc;
+     the CUDA kernels built from ``src/repro_torch/kernels/csrc`` with nvcc,
+     one process per source, all started together;
   2. each kernel against its plain PyTorch version on the card at the shapes
-     of the convert-and-serve path, in float32 (|err| <= 1e-4 max|ref|) and
-     bfloat16 (|err| <= 2e-2 max|ref|; sentinel rows of moe_gather exactly
-     zero), then timed with CUDA events in bfloat16 beside its plain
-     version, a PyTorch yardstick (library_ms) and its bound on the card;
-  3. end to end at the full width of qwen1.5-0.5b (24 layers, seeded random
-     weights): (a) in float32 the kernel path against the plain path on one
-     converted model (prefill logits within 1e-3 max|logit|, greedy tokens
-     compared), (b) the main path in bfloat16 through the serving CLI's
-     entry point (convert S3A3E8, prefill 4 x 32, decode 16 tokens), with
-     every kernel's launch count zeroed just before and read just after.
+     of its path, in float32 (|err| <= 1e-4 max|ref|) and bfloat16 (|err|
+     <= 2e-2 max|ref|; sentinel rows of moe_gather exactly zero;
+     paged_attn_decode on fragmented tables, grp 1 and 4, a window that
+     masks whole leading blocks, rows sharing a lane and all-trash padding
+     rows), then timed with CUDA events in bfloat16 beside its plain
+     version, a PyTorch yardstick (library_ms, null where no one PyTorch
+     call computes the function) and its bound on the card;
+  3. the static path at the full width of qwen1.5-0.5b (24 layers, seeded
+     random weights): (a) in float32 the kernel path against the plain path
+     on one converted model (prefill logits within 1e-3 max|logit|, greedy
+     tokens compared), (b) in bfloat16 through the serving CLI's entry
+     point (convert S3A3E8, prefill 4 x 32, decode 16 tokens), with every
+     kernel's launch count zeroed just before and read just after;
+  4. the continuous-batching engine at the same width in bfloat16: first
+     each dense product of the engine (and the norm) is checked bitwise
+     width-invariant on the card (a row alone and inside every width the
+     engine runs); then two runs through the CLI's entry point (overlapped
+     + paged, with parity replays: sequential, contiguous, and in the
+     second run prefix reuse off), with the launch counts zeroed before and
+     read after; every request done, streams identical, zero dropped pairs,
+     a clean pool audit, prefix hits in the second run.
 Prints the kernels JSON line, then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -42,6 +54,18 @@ CMOE = "S3A3E8"
 BATCH, PROMPT, GEN = 4, 32, 16
 CALIB_ROWS = 4 * 128
 L2_BYTES = 50e6
+
+# the engine's main path (phase 4) and its second, prefix-sharing run
+ENGINE_ARGS = ["--arch", ARCH, "--cmoe", CMOE, "--continuous", "--paged",
+               "--batch", "4", "--requests", "8", "--rate", "0.5",
+               "--prompt-len", "64", "--gen", "16",
+               "--max-prefill-tokens", "32", "--block-size", "16",
+               "--parity", "--seed", "0"]
+PREFIX_ARGS = ["--prefix-groups", "32", "--prefix-reuse"]
+# paged_attn_decode at the engine's decode shape (qwen1.5-0.5b is MHA) and
+# at a long context
+PAGED_MAIN = dict(rows=4, kh=16, grp=1, hd=64, bs=16, depth=80)
+PAGED_LONG = dict(rows=32, kh=16, grp=1, hd=64, bs=16, depth=2048)
 
 
 def nvidia_smi() -> str:
@@ -229,11 +253,126 @@ def kernel_phase() -> dict:
         bound_by=b_by, library_ms=lib_ms, dtype="bfloat16",
         shape=f"rows={BATCH * top_k} E={n_e} d={d} m={m} "
               f"distinct experts~{distinct:.2f}")
+    records["paged_attn_decode"] = paged_attn_phase(g, dev)
     for r in records.values():
+        lib = "null" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
         print(f"[time] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}"
               f" ms, {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms")
+              f"library {lib}")
     return records
+
+
+def paged_case(g, dev, dtype, *, rows, kh, grp, hd, bs, depth, share=False,
+               trash_rows=0):
+    """One paged_attn_decode input set: a pool with poisoned (large, finite)
+    unused blocks, fragmented tables (a random permutation of physical
+    blocks), positions spread around `depth`; `share` makes consecutive
+    row pairs one lane at two positions, `trash_rows` appends padding rows
+    whose tables are all trash (block 0)."""
+    import torch
+    nblk = -(-(depth + 1) // bs)
+    nblocks = rows * nblk + 1
+    k_pool = torch.randn((nblocks, bs, kh, hd), generator=g, device=dev)
+    v_pool = torch.randn((nblocks, bs, kh, hd), generator=g, device=dev)
+    perm = torch.randperm(nblocks - 1, generator=g, device=dev)[
+        :rows * nblk] + 1
+    table = perm.reshape(rows, nblk).to(torch.int32)
+    pos = torch.randint(max(depth - 2 * bs, 0), depth + 1, (rows,),
+                        generator=g, device=dev).to(torch.int32)
+    if share:
+        odd = table[1::2].shape[0]
+        table[1::2] = table[0::2][:odd]
+        pos[1::2] = (pos[0::2][:odd] - 3).clamp(min=0)
+    if trash_rows:
+        table = torch.cat([table, table.new_zeros((trash_rows, nblk))])
+        pos = torch.cat([pos, pos.new_zeros(trash_rows)])
+    k_pool[0] = 1e4          # the trash block: finite garbage
+    v_pool[0] = -1e4
+    q = torch.randn((table.shape[0], 1, kh * grp, hd), generator=g,
+                    device=dev)
+    return [t.to(dtype) for t in (q, k_pool, v_pool)] + [table, pos]
+
+
+def paged_attn_phase(g, dev) -> dict:
+    """paged_attn_decode against its plain version, then timed at the
+    engine's decode shape and at a long context."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attn_decode_plain
+
+    err = 0.0
+    cases = [dict(rows=6, kh=16, grp=1, hd=64, bs=16, depth=80, share=True,
+                  trash_rows=2, window=0),
+             dict(rows=6, kh=16, grp=1, hd=64, bs=16, depth=80, window=40),
+             dict(rows=5, kh=2, grp=4, hd=128, bs=8, depth=70, share=True,
+                  trash_rows=1, window=0),
+             dict(rows=5, kh=2, grp=4, hd=128, bs=8, depth=70, window=27)]
+    for dt in (torch.float32, torch.bfloat16):
+        for c in cases:
+            c = dict(c)
+            window = c.pop("window")
+            q, kp, vp, table, pos = paged_case(g, dev, dt, **c)
+            sc = c["hd"] ** -0.5
+            got = ops.paged_attn_decode(q, kp, vp, table=table, pos=pos,
+                                        window=window, scale=sc)
+            ref = paged_attn_decode_plain(q, kp, vp, table, pos, window,
+                                          scale=sc)
+            # real rows and the all-trash padding rows (which read the
+            # poisoned block) are held to tolerances of their own scale
+            real = c["rows"]
+            e = check(f"paged_attn_decode grp={c['grp']} bs={c['bs']} "
+                      f"window={window}", got[:real], ref[:real], dt)
+            if real < got.shape[0]:
+                check(f"paged_attn_decode grp={c['grp']} bs={c['bs']} "
+                      f"trash rows", got[real:], ref[real:], dt)
+            if dt == torch.bfloat16:
+                err = max(err, e)
+
+    def timed(shape):
+        """Kernel and plain ms at `shape` (every row at depth), and the
+        bound from the live K/V rows, q, out, table and pos."""
+        item = 2                                     # bf16 bytes
+
+        def one_set():
+            q, kp, vp, table, pos = paged_case(g, dev, torch.bfloat16,
+                                               **shape)
+            return [q, kp, vp, table, pos.fill_(shape["depth"])]
+
+        sets = [one_set()]
+        pool_bytes = sum(t.numel() * t.element_size() for t in sets[0])
+        sets += [one_set() for _ in range(n_sets(pool_bytes) - 1)]
+        sc = shape["hd"] ** -0.5
+        ms = time_ms(lambda q, kp, vp, t, p: ops.paged_attn_decode(
+            q, kp, vp, table=t, pos=p, scale=sc), sets)
+        plain_ms = time_ms(lambda q, kp, vp, t, p: paged_attn_decode_plain(
+            q, kp, vp, t, p, 0, scale=sc), sets)
+        rows, kh, grp, hd = (shape[k] for k in ("rows", "kh", "grp", "hd"))
+        live = shape["depth"] + 1
+        nbytes = (2 * rows * live * kh * hd * item        # K and V rows
+                  + 2 * rows * kh * grp * hd * item       # q and out
+                  + rows * (-(-live // shape["bs"]) + 1) * 4)  # table, pos
+        flops = 4 * rows * live * kh * grp * hd
+        return ms, plain_ms, bound(flops, nbytes, "bfloat16")
+
+    ms, plain_ms, (b_ms, b_by) = timed(PAGED_MAIN)
+    lms, lplain_ms, (lb_ms, lb_by) = timed(PAGED_LONG)
+    print(f"[time] paged_attn_decode long context {PAGED_LONG}: {lms:.4f} "
+          f"ms (bound {lb_ms:.4f} ms, {lb_by}), plain {lplain_ms:.4f} ms")
+    return dict(
+        name="paged_attn_decode", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attn.cu",
+        replaces="src/repro/kernels/paged_attention.py:119", launches=None,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        library_note="no single PyTorch call computes a block-table lookup "
+                     "plus attention", dtype="bfloat16",
+        shape=" ".join(f"{k}={v}" for k, v in PAGED_MAIN.items()),
+        long_context=dict(shape=" ".join(f"{k}={v}" for k, v in
+                                         PAGED_LONG.items()),
+                          ms=lms, plain_ms=lplain_ms, bound_ms=lb_ms,
+                          bound_by=lb_by))
 
 
 def f32_agreement() -> None:
@@ -286,6 +425,112 @@ def f32_agreement() -> None:
           f"tokens agree {agree}/{BATCH * GEN}")
     if not (torch.isfinite(lk).all() and err <= 1e-3 * scale):
         raise AssertionError("f32 kernel path disagrees with the plain path")
+
+
+def width_invariance() -> None:
+    """Phase 4a: every dense product the engine runs (and the norm), on the
+    card in bfloat16 at qwen1.5-0.5b's shapes, gives a row bitwise the same
+    result alone and inside every width the engine runs. Raw float32
+    torch.matmul is measured too: it is the product that needed the
+    port's fixed-tile row_matmul."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import matmul, rms_norm, unembed
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    cfg = get_config(ARCH)
+    d, hd, h = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads
+    m = cfg.d_ff // 8
+    bf = torch.bfloat16
+
+    def w(k, n):
+        return (torch.randn((k, n), generator=g, device=dev) * k ** -0.5
+                ).to(bf)
+
+    table = (torch.randn((cfg.vocab_size, d), generator=g, device=dev) *
+             d ** -0.5).to(bf)
+    norm = torch.zeros(d, dtype=bf, device=dev)
+    products = {
+        "q/k/v/o projections (d x d)": (d, lambda x, w_=w(d, h * hd):
+                                        matmul(x, w_)),
+        "shared experts gate/up (d x 3m)": (d, lambda x, w_=w(d, 3 * m):
+                                            matmul(x, w_)),
+        "shared experts down (3m x d)": (3 * m, lambda x, w_=w(3 * m, d):
+                                         matmul(x, w_)),
+        "router (d x 5)": (d, lambda x, w_=w(d, 5): matmul(x, w_)),
+        "unembed (f32, d x vocab)": (d, lambda x: unembed(x, table, True)),
+        "rms_norm": (d, lambda x: rms_norm(x, norm, cfg.norm_eps)),
+    }
+    widths = sorted({1, 2, 3, 4, 8, 12, 16, 20, 24, 28, 32, 36, 64, 65, 128})
+    for name, (k, fn) in products.items():
+        x = torch.randn((max(widths), k), generator=g, device=dev).to(bf)
+        bad = []
+        for wd in widths:
+            y = fn(x[:wd])
+            for r in {0, wd - 1}:
+                if not torch.equal(y[r:r + 1], fn(x[r:r + 1])):
+                    bad.append(wd)
+                    break
+        if bad:
+            raise AssertionError(f"{name} is not width-invariant on the "
+                                 f"card: widths {bad}")
+        print(f"[invariance] {name}: bitwise width-invariant at {widths}")
+    x = torch.randn((max(widths), d), generator=g, device=dev)
+    wf = table.T.float()
+    raw = [wd for wd in widths
+           if not torch.equal(torch.matmul(x[:wd], wf)[:1],
+                              torch.matmul(x[:1], wf))]
+    print(f"[invariance] raw float32 torch.matmul (d x vocab) breaks at "
+          f"widths {raw}: the port runs float32 products in fixed "
+          f"{64}-row tiles")
+
+
+def engine_phase() -> tuple[dict, list]:
+    """Phase 4b: the continuous-batching engine through the CLI's entry
+    point, launch counts zeroed before both runs and read after them."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    results = []
+    for extra in ([], PREFIX_ARGS):
+        res = serve.run(ENGINE_ARGS + extra)
+        results.append(res)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    for extra, res in zip(([], PREFIX_ARGS), results):
+        rep = res["report"]
+        tag = "prefix reuse" if extra else "paged"
+        want = ["overlap == sequential"] + \
+            (["prefix reuse == no reuse"] if extra else []) + \
+            ["paged == contiguous"]
+        if res["parity"] != want:
+            raise AssertionError(f"{tag}: parity replays {res['parity']}")
+        if not all(r.done for r in rep.requests) or rep.dropped_pairs or \
+                not rep.pool_audit.get("ok") or \
+                rep.pool_audit.get("allocated"):
+            raise AssertionError(f"{tag}: unfinished requests, drops or a "
+                                 f"bad audit {rep.pool_audit}")
+        if extra and rep.prefix_hits <= 0:
+            raise AssertionError("prefix reuse run had no prefix hits")
+        bc = {ph: dict(c) for ph, c in rep.backend_counts.items()}
+        print(f"[e2e engine] {tag}: {rep.num_requests} requests, "
+              f"{rep.total_new_tokens} tokens in {rep.steps} steps, wall "
+              f"{rep.wall_s:.3f} s, goodput {rep.goodput:.1f} tok/s, TTFT "
+              f"p50/p95 {rep.ttft_p50_s * 1e3:.1f}/"
+              f"{rep.ttft_p95_s * 1e3:.1f} ms, TPOT p50/p95 "
+              f"{rep.tpot_p50_s * 1e3:.2f}/{rep.tpot_p95_s * 1e3:.2f} ms, "
+              f"overlap occupancy {rep.overlap_occupancy:.3f}, prefix hits "
+              f"{rep.prefix_hits}, backends {bc}, audit {rep.pool_audit}, "
+              f"parity {res['parity']}")
+    print(f"[e2e engine] launches over both runs {launches}")
+    return launches, results
 
 
 def main(argv=None) -> int:
@@ -357,10 +602,19 @@ def main(argv=None) -> int:
           f"{serve.PREFILL_REPEATS} warm), decode "
           f"{res['decode_tok_s']:.1f} tok/s ({BATCH} lanes, {GEN - 1} "
           f"steps), launches {launches}")
+    for name in ("swiglu_ffn", "moe_gmm_ragged", "moe_gather"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"static path")
+        records[name]["launches_static"] = launches[name]
+
+    # phase 4: the continuous-batching engine, paged, overlapped
+    width_invariance()
+    launches, _ = engine_phase()
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
+                                 f"engine's path")
         records[name]["launches"] = n
 
     print(smi)

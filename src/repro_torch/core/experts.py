@@ -90,7 +90,10 @@ def ragged_layout(flat_e: torch.Tensor, num_experts: int, block: int):
     nb = p_total // block
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=num_experts + 1)  # [E] masked
+    # a scatter-add rather than bincount, which reads the max id back to
+    # the host (a device sync that would stall the overlapped engine)
+    counts = torch.zeros(num_experts + 1, dtype=torch.long, device=dev)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))      # [E] masked
     padded = ((counts[:num_experts] + block - 1) // block) * block
     zero = torch.zeros(1, dtype=counts.dtype, device=dev)
     poff = torch.cat([zero, torch.cumsum(padded, 0)])             # (E + 1,)
@@ -111,13 +114,14 @@ def ragged_layout(flat_e: torch.Tensor, num_experts: int, block: int):
 def ragged_scatter(xf: torch.Tensor, top_k: int, slot: torch.Tensor,
                    p_total: int) -> torch.Tensor:
     """Each assignment's token row into its layout row; sentinel slots (P)
-    are dropped."""
+    land in a spare row that is cut off (no boolean mask, so no device
+    sync)."""
     n = slot.shape[0]
     tok = torch.arange(n, device=xf.device) // top_k
-    live = slot < p_total
-    xp = torch.zeros((p_total, xf.shape[1]), dtype=xf.dtype, device=xf.device)
-    xp[slot[live]] = xf[tok[live]]
-    return xp
+    xp = torch.zeros((p_total + 1, xf.shape[1]), dtype=xf.dtype,
+                     device=xf.device)
+    xp[slot] = xf[tok]
+    return xp[:p_total]
 
 
 def ragged_combine(yp: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
@@ -272,14 +276,21 @@ def _grouped(xf, weights, gates, idx, activation, valid, *, use_kernel):
 
 def select_backend(t: int, cfg, phase: str, *, use_kernel: bool = False,
                    num_experts: Optional[int] = None,
-                   top_k: Optional[int] = None) -> str:
+                   top_k: Optional[int] = None,
+                   effective_k: Optional[float] = None) -> str:
     """Decode -> ``gather``; prefill up to the break-even -> ``gather``;
     larger prefill -> grouped (the kernel when ``use_kernel``).
 
     The break-even is weight traffic: gather reads t*k expert slabs,
     grouped reads each expert's slab once, so gather wins roughly while
     t*k <= E; the threshold is max(8, E / k). Bank shape comes from
-    num_experts/top_k when the caller knows it, else from cfg.cmoe."""
+    num_experts/top_k when the caller knows it, else from cfg.cmoe.
+
+    Phase "mixed" is the overlapped engine's fused step (decode rows and
+    flattened chunk rows in one (R, 1) dispatch): it skips decode's
+    unconditional gather and thresholds the true fused width.
+    ``effective_k`` (a micro-batch's mean per-row k under activation
+    tiers) replaces top_k in the break-even."""
     if num_experts is None or top_k is None:
         spec = getattr(cfg, "cmoe", None)
         if spec is not None:
@@ -287,7 +298,9 @@ def select_backend(t: int, cfg, phase: str, *, use_kernel: bool = False,
             top_k = top_k or spec.top_k
     threshold = GATHER_TOKEN_THRESHOLD
     if num_experts and top_k:
-        threshold = max(threshold, int(num_experts / top_k))
+        k_eff = max(float(effective_k), 1.0) if effective_k else \
+            float(top_k)
+        threshold = max(threshold, int(num_experts / k_eff))
     if phase == "decode" or t <= threshold:
         return "gather"
     return "grouped_kernel" if use_kernel else "grouped_plain"
@@ -295,7 +308,9 @@ def select_backend(t: int, cfg, phase: str, *, use_kernel: bool = False,
 
 def microbatch_backend(cfg, num_tokens: int, phase: str, *,
                        use_kernel: bool = False,
-                       override: Optional[str] = None) -> Optional[str]:
+                       override: Optional[str] = None,
+                       effective_k: Optional[float] = None
+                       ) -> Optional[str]:
     """The backend ``routed_experts`` will run for a (phase, num_tokens)
     micro-batch of this model: None without routed experts, the override
     when one is pinned, else the auto choice (grouped_kernel falls back to
@@ -307,7 +322,8 @@ def microbatch_backend(cfg, num_tokens: int, phase: str, *,
                                   "ported yet")
     if override not in (None, "auto"):
         return override
-    be = select_backend(num_tokens, cfg, phase, use_kernel=use_kernel)
+    be = select_backend(num_tokens, cfg, phase, use_kernel=use_kernel,
+                        effective_k=effective_k)
     if be == "grouped_kernel" and cfg.activation not in ("swiglu", "geglu"):
         be = "grouped_plain"
     return be

@@ -31,10 +31,17 @@ def _shared_ffn(xf: torch.Tensor, p: dict, activation: str) -> torch.Tensor:
 
 
 def cmoe_ffn(x: torch.Tensor, p: dict, cfg, *, use_kernel: bool = False,
-             backend: Optional[str] = None, phase: str = "prefill"):
+             backend: Optional[str] = None, phase: str = "prefill",
+             valid: Optional[torch.Tensor] = None,
+             k_row: Optional[torch.Tensor] = None):
     """x: (B, S, d) or (T, d). Returns (out, aux{load, router_probs_mean,
-    dropped}). (Padding masks and per-token k, which the serving engine
-    threads through, come with its slice.)"""
+    dropped}).
+
+    valid: optional (T, 1) bool; False rows (right-padded serving prompts)
+    contribute nothing and take no routed-expert work or load stats.
+    k_row: optional (T,) per-token effective k in [1, cm.top_k]
+    (activation tiers; cm.top_k is the static K_max): assignments past a
+    token's k are invalidated by the gate like padding."""
     cm = cfg.cmoe
     squeeze = x.dim() == 2
     xf = x if squeeze else x.reshape(-1, x.shape[-1])
@@ -43,15 +50,15 @@ def cmoe_ffn(x: torch.Tensor, p: dict, cfg, *, use_kernel: bool = False,
     gates, idx, probs = cmoe_gate(
         scores, cm.top_k,
         u=p.get("u") if cm.learnable_scaling else None,
-        bias=p.get("bias"))
+        bias=p.get("bias"), k_row=k_row)
 
     out, keep = routed_experts(xf, p["routed"], gates, idx, cfg,
                                backend=backend, phase=phase,
-                               use_kernel=use_kernel)
+                               use_kernel=use_kernel, valid=valid)
     out = out + _shared_ffn(xf, p["shared"], cfg.activation)
     aux = {"load": expert_load(idx, keep, cm.num_routed),
            "router_probs_mean": probs.mean(0),
-           "dropped": dropped_pairs(keep, None, idx.shape)}
+           "dropped": dropped_pairs(keep, valid, idx.shape)}
     if not squeeze:
         out = out.reshape(x.shape)
     return out, aux

@@ -21,18 +21,22 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("swiglu", "moe_gmm", "moe_gather")
+SOURCES = ("swiglu", "moe_gmm", "moe_gather", "paged_attn")
 HEADERS = ("ffn_core.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: every pointer and the stream as c_void_p, sizes as c_int
+_F = ctypes.c_float
+# C entry points: every pointer and the stream as c_void_p, sizes as c_int,
+# the attention scale as c_float
 SIGNATURES = {
     "swiglu": ("swiglu_ffn_launch", [_P] * 6 + [_I] * 5 + [_P]),
     "moe_gmm": ("moe_gmm_ragged_launch", [_P] * 7 + [_I] * 7 + [_P]),
     "moe_gather": ("moe_gather_launch", [_P] * 7 + [_I] * 7 + [_P]),
+    "paged_attn": ("paged_attn_decode_launch",
+                   [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
 """Wrappers around the port's kernels: device routing and launch counts.
 
-Port of ``repro/kernels/ops.py`` for the three kernels on the static
-convert-and-serve path. Each wrapper routes by the device of its operands:
+Port of ``repro/kernels/ops.py`` for the kernels on the convert-and-serve
+path and the serving engine. Each wrapper routes by the device of its
+operands:
 
   * a CPU tensor runs the kernel's plain PyTorch version;
   * a CUDA tensor launches the hand-written CUDA kernel, or raises.
@@ -19,9 +20,11 @@ import torch
 from repro_torch.kernels.moe_gather import moe_gather_cuda, moe_gather_plain
 from repro_torch.kernels.moe_gmm import (CUDA_TILE_ROWS, moe_gmm_ragged_cuda,
                                          moe_gmm_ragged_plain)
+from repro_torch.kernels.paged_attention import (paged_attn_decode_cuda,
+                                                 paged_attn_decode_plain)
 from repro_torch.kernels.swiglu import swiglu_ffn_cuda, swiglu_ffn_plain
 
-KERNELS = ("swiglu_ffn", "moe_gmm_ragged", "moe_gather")
+KERNELS = ("swiglu_ffn", "moe_gmm_ragged", "moe_gather", "paged_attn_decode")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 # Row tile of the ragged expert layout ``moe_gmm_ragged`` consumes: one
@@ -107,4 +110,24 @@ def moe_gather(xf: torch.Tensor, eidx: torch.Tensor, wg: torch.Tensor,
     out = moe_gather_cuda(xf.contiguous(), eidx.contiguous(), wg, wu, wd,
                           top_k=top_k, activation=activation)
     LAUNCHES["moe_gather"] += 1
+    return out
+
+
+def paged_attn_decode(q: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, *, table: torch.Tensor,
+                      pos: torch.Tensor, window: int = 0, scale: float
+                      ) -> torch.Tensor:
+    """q: (B, 1, H, hd); k_pool/v_pool: (nblocks, bs, KH, hd); table:
+    (B, nblk) block tables (0 = trash/unallocated); pos: (B,) last valid
+    logical index per row; window: int sliding window (0 = full). Returns
+    (B, 1, H, hd)."""
+    if not _route(q):
+        return paged_attn_decode_plain(q, k_pool, v_pool, table, pos,
+                                       int(window), scale=scale)
+    out = paged_attn_decode_cuda(
+        q.contiguous(), k_pool, v_pool,
+        table.to(device=q.device, dtype=torch.int32).contiguous(),
+        pos.to(device=q.device, dtype=torch.int32).reshape(-1).contiguous(),
+        int(window), scale=scale)
+    LAUNCHES["paged_attn_decode"] += 1
     return out

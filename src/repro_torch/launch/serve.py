@@ -1,8 +1,14 @@
-"""Serving CLI, static mode: build a dense model from a seed, optionally
-convert it to CMoE on a synthetic calibration batch, then one prefill and a
-greedy (or temperature) decode loop. Port of the static mode of
-``repro/launch/serve.py``; the continuous-batching engine comes with a
-later slice.
+"""Serving CLI: build a dense model from a seed, optionally convert it to
+CMoE on a synthetic calibration batch, then serve. Port of
+``repro/launch/serve.py``.
+
+Static mode (default): one prefill and a greedy (or temperature) decode
+loop. ``--continuous``: the continuous-batching engine
+(``repro_torch.serving``) on a staggered-arrival mixed-length request set,
+overlapped by default (``--no-overlap`` for the sequential loop), with
+chunked prefill (``--max-prefill-tokens``), the paged block pool
+(``--paged``), prefix reuse, priority preemption, activation tiers and
+``--parity`` replays that assert token-identical streams.
 
 Runs on the GPU (``cuda``) unless ``--device cpu`` is given, and raises when
 no GPU is present and the CPU was not asked for. ``--use-kernel`` defaults
@@ -10,6 +16,11 @@ to on exactly on CUDA; ``--no-use-kernel`` runs the plain PyTorch path.
 
     python -m repro_torch.launch.serve --cmoe S3A3E8
     python -m repro_torch.launch.serve --smoke --cmoe S3A3E8 --device cpu
+    python -m repro_torch.launch.serve --smoke --continuous --paged \
+        --parity --device cpu
+    python -m repro_torch.launch.serve --cmoe S3A3E8 --continuous --paged \
+        --batch 4 --requests 8 --prompt-len 64 --gen 16 \
+        --max-prefill-tokens 32 --parity
 """
 from __future__ import annotations
 
@@ -30,7 +41,7 @@ from repro_torch.data import make_calibration_batch
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.model import tree_map
-from repro_torch.serving import make_sampler
+from repro_torch.serving import ServingEngine, make_requests, make_sampler
 
 # timed prefills after the warm-up one; prefill_ms is their median
 PREFILL_REPEATS = 5
@@ -74,6 +85,55 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a "
                          "GPU unless this is 'cpu')")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching engine: staggered arrivals, "
+                         "mixed lengths, slot recycling")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="[--continuous] number of requests")
+    ap.add_argument("--rate", type=float, default=0.5,
+                    help="[--continuous] Poisson arrival rate (requests "
+                         "per engine step; 0 = all at once)")
+    ap.add_argument("--max-prefill-tokens", type=int, default=None,
+                    help="[--continuous] per-step prefill token budget "
+                         "(longer prompts are chunked across steps)")
+    ap.add_argument("--capacity-factor", type=float, default=None,
+                    help="capacity factor of the sharded dispatch policy "
+                         "(not ported yet: raises)")
+    ap.add_argument("--paged", action="store_true",
+                    help="[--continuous] paged KV cache: a block pool with "
+                         "per-request block tables; admission is gated on "
+                         "pool headroom")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="[--paged] tokens per cache block")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="[--paged] pool size in blocks (default: the "
+                         "contiguous cache's token capacity)")
+    ap.add_argument("--prefix-reuse", action="store_true",
+                    help="[--paged] content-addressed prefix sharing "
+                         "(token-identical to reuse off)")
+    ap.add_argument("--prefix-groups", default=None,
+                    help="[--continuous] comma list of shared system-"
+                         "prompt lengths cycled over requests, e.g. '24'")
+    ap.add_argument("--priority", default=None,
+                    help="[--continuous] comma list of priority classes "
+                         "cycled over requests, e.g. '0,1'")
+    ap.add_argument("--expect-preemption", action="store_true",
+                    help="assert at least one lane was preempted and every "
+                         "request still completed")
+    ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="[--continuous] overlapped engine: one fused "
+                         "dispatch per step, on-device sampling, readback "
+                         "one step late (default on)")
+    ap.add_argument("--tier", default=None,
+                    help="[--continuous] per-request activation tier(s), "
+                         "an int or a comma list cycled over requests, "
+                         "e.g. '1,default' (needs --cmoe)")
+    ap.add_argument("--parity", action="store_true",
+                    help="[--continuous] replay the requests on the other "
+                         "axes (sequential, contiguous, unchunked, reuse "
+                         "off, unpressured) and assert identical streams "
+                         "and zero dropped pairs")
     return ap
 
 
@@ -83,6 +143,15 @@ def run(argv=None) -> dict:
     decode_tok_s, tokens (B, gen), backends per phase, conversion seconds,
     and per-backend decode tok/s for 'all'."""
     args = parser().parse_args(argv)
+    if args.capacity_factor is not None:
+        raise NotImplementedError(
+            "--capacity-factor feeds the sharded dispatch policy "
+            "(repro.distributed.policy), which is not ported yet")
+    if args.continuous and args.smoke and not args.cmoe:
+        # exercise the per-micro-batch backend policy: without routed
+        # experts there is nothing for the phase split to select
+        args.cmoe = "S2A2E8"
+        print("[continuous] defaulting --cmoe S2A2E8 (smoke)")
     device = resolve_device(args.device)
     if device.type == "cuda":
         # fp32 matmuls in full fp32 and bf16 matmuls summed in fp32, as the
@@ -119,6 +188,13 @@ def run(argv=None) -> dict:
               f"{report.seconds_total:.2f}s (profile "
               f"{report.seconds_profile:.2f}s, cluster "
               f"{report.seconds_cluster:.2f}s)")
+
+    if args.continuous:
+        if args.backend == "all":
+            print("[continuous] note: --backend all is a static-mode "
+                  "feature; the engine runs the auto phase policy")
+        result.update(serve_continuous(model, params, args))
+        return result
 
     rng = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(
@@ -207,6 +283,179 @@ def run(argv=None) -> dict:
     return result
 
 
+
+def serve_continuous(model, params, args) -> dict:
+    """Continuous-batching mode: Poisson arrivals, per-request lengths.
+    --parity replays the same requests on the OTHER axes and asserts
+    token-identical streams with zero dropped pairs: under --overlap (the
+    default) against a sequential run, then with --paged against a
+    contiguous run, with --prefix-reuse against reuse off, with a pressured
+    --priority pool against an unpressured one, or with
+    --max-prefill-tokens (contiguous) against an unchunked run; every
+    baseline runs overlap-off. Returns {"report", "parity" (what was
+    compared, in order), "engine"}."""
+    cfg = model.cfg
+    if args.prefix_reuse and not args.paged:
+        raise SystemExit("--prefix-reuse needs --paged: sharing is a "
+                         "block-table property")
+    max_len = args.prompt_len + args.gen
+    tiers = None
+    if args.tier:
+        tiers = [None if t.strip().lower() == "default" else int(t)
+                 for t in args.tier.split(",")]
+        if cfg.cmoe is None:
+            raise SystemExit("--tier needs a CMoE-routed model (--cmoe)")
+    k_max = cfg.cmoe.top_k if cfg.cmoe is not None else 1
+    tiered = bool(tiers) and any(t is not None and t != k_max
+                                 for t in tiers)
+    prefix_groups = None
+    if args.prefix_groups:
+        prefix_groups = [int(p) for p in args.prefix_groups.split(",")]
+        # shared prefixes lengthen prompts: widen the max_len wall so
+        # nothing truncates just for carrying one
+        max_len += max(prefix_groups)
+    priorities = None
+    if args.priority:
+        priorities = [int(p) for p in args.priority.split(",")]
+    lo_p = min(max(4, args.prompt_len // 2), args.prompt_len)
+    reqs = make_requests(args.requests, cfg.vocab_size,
+                         prompt_range=(lo_p, args.prompt_len),
+                         gen_range=(max(1, args.gen // 2), args.gen),
+                         rate=args.rate, seed=args.seed, tiers=tiers,
+                         prefix_groups=prefix_groups,
+                         priorities=priorities)
+    engine = ServingEngine(model, params, max_slots=args.batch,
+                           max_len=max_len,
+                           max_prefill_tokens=args.max_prefill_tokens,
+                           temperature=args.temperature, seed=args.seed,
+                           paged=args.paged, block_size=args.block_size,
+                           num_blocks=args.num_blocks,
+                           prefix_reuse=args.prefix_reuse,
+                           overlap=args.overlap)
+    report = engine.run(reqs)
+    print(f"[continuous] {report.summary()}")
+    assert all(r.done for r in report.requests), "unfinished requests"
+    if tiers:
+        for k, m in sorted(report.tier_metrics().items()):
+            print(f"[continuous] tier k={k}: {m['requests']} requests, "
+                  f"{m['tokens']} tokens ({m['pairs']} routed pairs), "
+                  f"TTFT p50/p95 {m['ttft_p50_s'] * 1e3:.1f}/"
+                  f"{m['ttft_p95_s'] * 1e3:.1f} ms, TPOT p50/p95 "
+                  f"{m['tpot_p50_s'] * 1e3:.1f}/"
+                  f"{m['tpot_p95_s'] * 1e3:.1f} ms")
+    if args.paged:
+        kv = engine.kv
+        print(f"[continuous] paged pool: {kv.num_blocks} blocks x "
+              f"{kv.block_size} tokens (+1 trash), peak occupancy "
+              f"{report.peak_occupancy}/{args.batch} slots, "
+              f"{report.gate_deferrals} admission deferrals "
+              f"({report.deferral_causes or 'none'}), "
+              f"{report.preemptions} preemptions, {report.truncated} "
+              f"truncated, end-of-run audit {report.pool_audit}")
+    if args.prefix_reuse:
+        print(f"[continuous] prefix reuse: hit-rate "
+              f"{report.prefix_hit_rate * 100:.0f}% "
+              f"({report.prefix_matched_tokens}/"
+              f"{report.prefix_prompt_tokens} prefill tokens skipped, "
+              f"{report.prefix_hits} hits), {report.reused_blocks} blocks "
+              f"shared by refcount, {report.cow_copies} copy-on-write "
+              f"tails")
+    if args.expect_preemption:
+        assert report.preemptions > 0, (
+            "--expect-preemption: no lane was preempted")
+        print(f"[continuous] preemption OK: {report.preemptions} "
+              f"evictions, every request (victims included) completed")
+    parity = []
+    if args.parity:
+        comparisons = []   # (what, fork message, engine kwargs)
+        common = dict(max_slots=args.batch, max_len=max_len,
+                      temperature=args.temperature, seed=args.seed)
+        if args.overlap:
+            comparisons.append((
+                "overlap == sequential",
+                "the overlapped engine forked the generated streams",
+                dict(common, max_prefill_tokens=args.max_prefill_tokens,
+                     paged=args.paged, block_size=args.block_size,
+                     num_blocks=args.num_blocks,
+                     prefix_reuse=args.prefix_reuse, overlap=False)))
+        if args.prefix_reuse:
+            comparisons.append((
+                "prefix reuse == no reuse",
+                "prefix sharing forked the generated streams",
+                dict(common, max_prefill_tokens=args.max_prefill_tokens,
+                     paged=True, block_size=args.block_size,
+                     num_blocks=args.num_blocks, prefix_reuse=False,
+                     overlap=False)))
+        if args.priority and args.paged and args.num_blocks is not None:
+            comparisons.append((
+                "preempted == unpressured",
+                "preemption forked the generated streams",
+                dict(common, max_prefill_tokens=args.max_prefill_tokens,
+                     paged=True, block_size=args.block_size,
+                     num_blocks=None, prefix_reuse=args.prefix_reuse,
+                     overlap=False)))
+        if args.paged:
+            comparisons.append((
+                "paged == contiguous",
+                "paged and contiguous serving forked the generated "
+                "streams",
+                dict(common, max_prefill_tokens=args.max_prefill_tokens,
+                     overlap=False)))
+        elif args.max_prefill_tokens is not None:
+            comparisons.append((
+                "chunked == unchunked",
+                "chunked and unchunked prefill forked the generated "
+                "streams",
+                dict(common, max_prefill_tokens=None, overlap=False)))
+        if not comparisons:
+            raise SystemExit("--parity needs an axis to compare: --overlap "
+                             "(default), --paged, or --max-prefill-tokens")
+        toks = {r.rid: tuple(r.generated) for r in report.requests}
+        assert report.dropped_pairs == 0, (
+            "routed pairs were dropped", report.dropped_pairs)
+        for what, fork_msg, kw in comparisons:
+            base = ServingEngine(model, params, **kw).run(reqs)
+            toks_base = {r.rid: tuple(r.generated) for r in base.requests}
+            assert toks == toks_base, fork_msg
+            assert base.dropped_pairs == 0, (
+                "routed pairs were dropped", base.dropped_pairs)
+            parity.append(what)
+            print(f"[continuous] parity OK: {what} token-for-token "
+                  f"({sum(len(t) for t in toks.values())} tokens), "
+                  f"0 dropped pairs in both runs")
+
+    # the backend policy: sequential decode on gather and prefill above the
+    # break-even on a grouped path; a fused step by its padded width
+    # (phase "mixed"). Asserted only under the auto policy.
+    bc = report.backend_counts
+    has_experts = any(b != "-" for c in bc.values() for b in c)
+    if has_experts and args.backend in (None, "auto", "all"):
+        decode_b, prefill_b = set(bc["decode"]), set(bc["prefill"])
+        if args.overlap:
+            assert not prefill_b, \
+                f"fused mode dispatched prefill micro-batches: {prefill_b}"
+            for _, _, padded, live, backend, _, active in \
+                    engine.backend_log:
+                eff = (active / max(live, 1)) if tiered else None
+                want = microbatch_backend(cfg, padded, "mixed",
+                                          use_kernel=model.use_kernel,
+                                          effective_k=eff)
+                assert backend == want, \
+                    f"fused width {padded} ran {backend}, policy {want}"
+        else:
+            grouped = {"grouped_plain", "grouped_kernel"}
+            assert decode_b == {"gather"}, f"decode ran {decode_b}"
+            assert prefill_b <= grouped | {"gather"} and \
+                prefill_b & grouped, f"prefill ran {prefill_b}"
+        print(f"[continuous] backend policy OK: prefill={sorted(prefill_b)} "
+              f"decode={sorted(decode_b)}")
+    if report.slot_reuse == 0 and args.requests > args.batch:
+        print("[continuous] warning: no slot was recycled (arrivals too "
+              "spread out?)")
+    return {"report": report, "parity": parity, "engine": engine}
+
+
+
 def main(argv=None) -> int:
     run(argv)
     return 0
@@ -214,3 +463,4 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     sys.exit(main())
+

@@ -1,7 +1,8 @@
-"""GQA attention, forward only: chunked (flash-style) causal attention and
-single-step decode attention against a contiguous KV cache.
+"""GQA attention, forward only: chunked (flash-style) causal attention,
+per-slot (ragged) attention against a contiguous KV cache, and the paged
+block-pool cache of the serving engine.
 
-Port of the static-cache paths of ``repro/models/attention.py``. Written as
+Port of the GQA paths of ``repro/models/attention.py``. Written as
 plain tensor code (no fused attention operator): the chunked forward keeps
 the reference's online softmax over KV chunks, with the same rounding
 points, and masks the keys its padding adds.
@@ -93,21 +94,28 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, *, pos: int, window: int = 0,
+                     v_cache: torch.Tensor, *, pos, window: int = 0,
                      scale: Optional[float] = None) -> torch.Tensor:
     """Single-step attention against a cache: the S=1 case of
-    `ragged_attention`. q: (B, 1, H, D); caches: (B, T, KH, D)."""
+    `ragged_attention`. q: (B, 1, H, D); caches: (B, T, KH, D); pos: a
+    scalar or per-slot (B,) current position."""
     return ragged_attention(q, k_cache, v_cache, pos=pos, window=window,
                             scale=scale)
 
 
+def _pos_vector(pos, b: int, device) -> torch.Tensor:
+    """A scalar or (B,) position -> a (B,) int64 tensor on `device`."""
+    p = torch.as_tensor(pos, device=device).long().reshape(-1)
+    return p.expand(b) if p.numel() == 1 else p
+
+
 def ragged_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, *, pos: int, window: int = 0,
+                     v_cache: torch.Tensor, *, pos, window: int = 0,
                      scale: Optional[float] = None) -> torch.Tensor:
-    """Multi-token attention against a cache at a scalar query offset:
-    query i attends cache entries <= pos + i. q: (B, S, H, D); caches:
-    (B, T, KH, D). Returns (B, S, H, Dv). (The per-slot (B,) offsets of
-    the serving engine come with its slice.)"""
+    """Multi-token attention against a cache with per-slot query offsets:
+    query i of lane b attends cache entries <= pos[b] + i. q: (B, S, H,
+    D); caches: (B, T, KH, D); pos: (B,) or a scalar shared by the batch.
+    Returns (B, S, H, Dv)."""
     b, s, h, d = q.shape
     t = k_cache.shape[1]
     scale = scale if scale is not None else d ** -0.5
@@ -115,15 +123,142 @@ def ragged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     v = _repeat_kv(v_cache, h)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     kv_pos = torch.arange(t, device=q.device)
-    q_abs = int(pos) + torch.arange(s, device=q.device)           # (S,)
-    mask = kv_pos[None, :] <= q_abs[:, None]
+    q_abs = _pos_vector(pos, b, q.device)[:, None] + \
+        torch.arange(s, device=q.device)                      # (B, S)
+    mask = kv_pos[None, None, None, :] <= q_abs[:, None, :, None]
     if window > 0:
-        mask = mask & (kv_pos[None, :] > q_abs[:, None] - window)
-    scores = torch.where(mask[None, None], scores,
-                         torch.full_like(scores, NEG_INF))
+        mask = mask & (kv_pos[None, None, None, :] >
+                       q_abs[:, None, :, None] - window)
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
     return out.to(v.dtype)
+
+
+def is_per_slot(pos) -> bool:
+    """True when a cache position is a per-slot (B,) vector rather than a
+    scalar shared by the whole batch."""
+    return isinstance(pos, torch.Tensor) and pos.dim() == 1
+
+
+# ------------------------------------------------------------ paged cache
+#
+# The JAX reference returns updated copies of the cache; the port writes
+# into the caller's pool or cache in place (no per-step copy of the
+# cache). Every write lands on the current stream before the attention that
+# reads it, so a row sees its own and its siblings' new keys exactly as the
+# reference's write-then-view does.
+
+def paged_view(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Each lane's logical sequence view from a block pool. pool:
+    (nblocks, bs, ...); table: (B, nblk), physical block 0 the trash block.
+    Returns (B, nblk * bs, ...)."""
+    b, nblk = table.shape
+    g = pool[table.long()]                          # (B, nblk, bs, ...)
+    return g.reshape(b, nblk * pool.shape[1], *pool.shape[2:])
+
+
+def paged_cache_update(pool: torch.Tensor, vals: torch.Tensor, pos,
+                       table: torch.Tensor) -> torch.Tensor:
+    """Write vals (B, S, ...) into a block pool in place: token i of lane
+    b lands at logical position p = pos[b] + i, physical (table[b, p //
+    bs], p % bs). Writes past the table width (a padded chunk tail
+    spilling beyond the lane's allocation) go to the trash block 0, as do
+    writes through unallocated entries (which hold 0). Trash contents are
+    finite garbage no mask reaches. Returns the pool."""
+    bs = pool.shape[1]
+    b, s = vals.shape[0], vals.shape[1]
+    nblk = table.shape[1]
+    p = _pos_vector(pos, b, pool.device)[:, None] + \
+        torch.arange(s, device=pool.device)
+    blk, off = p // bs, p % bs                      # (B, S) each
+    tl = table.long().to(pool.device)
+    phys = torch.gather(tl, 1, blk.clamp(0, nblk - 1))
+    phys = torch.where(blk < nblk, phys, torch.zeros_like(phys))
+    pool[phys, off] = vals.to(pool.dtype)
+    return pool
+
+
+def paged_ragged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, *, table: torch.Tensor,
+                           pos, window: int = 0,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """`ragged_attention` over a paged cache: index the pool by block
+    table into the logical (B, T) view, then the shared per-slot masks."""
+    k = paged_view(k_pool, table)
+    v = paged_view(v_pool, table)
+    return ragged_attention(q, k, v, pos=pos, window=window, scale=scale)
+
+
+def rows_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                   v_pool: torch.Tensor, *, table: torch.Tensor, pos,
+                   window: int = 0,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Per-slot attention through the ``paged_attn_decode`` kernel, one
+    kernel row per query token: query i of lane b becomes a row at
+    position pos[b] + i reading lane b's table. q: (B, S, H, D); table:
+    (B, nblk). Returns (B, S, H, D).
+
+    The kernel's arithmetic for a row depends only on its query, its keys
+    and its position, never on how many rows ride the call nor on the
+    pool's block size. So a prefill chunk, a decode step, a fused step's
+    row, a paged lane and a contiguous lane (a pool of one block per lane)
+    all give a token bitwise the same attention output: this is what keeps
+    the serving engine's parity gates exact on the card."""
+    from repro_torch.kernels import ops as kops
+    b, s, h, d = q.shape
+    sc = scale if scale is not None else d ** -0.5
+    rows_pos = (_pos_vector(pos, b, q.device)[:, None] +
+                torch.arange(s, device=q.device)).reshape(-1)
+    tl = table if s == 1 else \
+        table[:, None].expand(b, s, table.shape[1]).reshape(b * s, -1)
+    out = kops.paged_attn_decode(q.reshape(b * s, 1, h, d), k_pool, v_pool,
+                                 table=tl, pos=rows_pos, window=window,
+                                 scale=sc)
+    return out.reshape(b, s, h, d)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, *, table: torch.Tensor,
+                           pos, window: int = 0,
+                           scale: Optional[float] = None,
+                           use_kernel: bool = False) -> torch.Tensor:
+    """The S=1 case of `paged_ragged_attention`. With ``use_kernel`` the
+    ``paged_attn_decode`` kernel attends the pool directly (only live
+    blocks are read, no logical view is materialized)."""
+    if use_kernel:
+        return rows_attention(q, k_pool, v_pool, table=table, pos=pos,
+                              window=window, scale=scale)
+    return paged_ragged_attention(q, k_pool, v_pool, table=table, pos=pos,
+                                  window=window, scale=scale)
+
+
+def slot_cache_update(cache: torch.Tensor, vals: torch.Tensor, pos
+                      ) -> torch.Tensor:
+    """Write vals (B, S, ...) into cache (B, T, ...) in place at per-slot
+    offsets: row b lands at cache[b, pos[b] : pos[b] + S]. Writes past T
+    are dropped (a padded prefill row may spill past max_len; those
+    entries are never attended). Without a host read of pos, the drop is
+    done one column at a time: column i's rows hit distinct lanes, and a
+    spilled entry rewrites its lane's last cell with the value that cell
+    already holds. Returns the cache."""
+    b, s = vals.shape[0], vals.shape[1]
+    t = cache.shape[1]
+    rows = torch.arange(b, device=cache.device)
+    p = _pos_vector(pos, b, cache.device)
+    vals = vals.to(cache.dtype)
+    for i in range(s):
+        col = p + i
+        ok = (col < t).reshape(b, *([1] * (vals.dim() - 2)))
+        colc = col.clamp(max=t - 1)
+        cache[rows, colc] = torch.where(ok, vals[:, i], cache[rows, colc])
+    return cache
+
+
+def _lane_table(n: int, device) -> torch.Tensor:
+    """(n, 1) table reading lane i of a contiguous (n, T, ...) cache as
+    block i of a pool of one block per lane."""
+    return torch.arange(n, device=device, dtype=torch.int32)[:, None]
 
 
 # ------------------------------------------------------------------ GQA
@@ -147,16 +282,33 @@ def gqa_project_qkv(x: torch.Tensor, p: dict, cfg):
 
 def gqa_attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
                   causal: bool = True, window: int = 0,
-                  kv_cache: Optional[tuple] = None,
-                  cache_pos: Optional[int] = None, use_rope: bool = True):
+                  kv_cache: Optional[tuple] = None, cache_pos=None,
+                  use_rope: bool = True,
+                  block_table: Optional[torch.Tensor] = None,
+                  row_slots: Optional[torch.Tensor] = None,
+                  use_kernel: bool = False):
     """Project, rope, attend, output-project. Returns (out (B,S,d), new_kv).
 
+    K/V are written into the cache IN PLACE (the JAX reference returns an
+    updated copy; the port updates the caller's tensors to save the copy):
+
     - no cache: chunked attention over the block's own keys;
-    - cache + scalar ``cache_pos``: K/V are written into the cache at
-      [cache_pos, cache_pos + S) IN PLACE (the JAX reference returns an
-      updated copy; the port updates the caller's tensors to save the
-      copy), then S > 1 runs chunked attention over the cache and S == 1
-      decode attention.
+    - ``block_table`` (B, nblk): the cache leaves are a PAGED pool
+      (nblocks, bs, KH, hd); writes go through the table, reads assemble
+      each lane's logical view (or, with ``use_kernel``, the
+      ``paged_attn_decode`` kernel reads the pool directly);
+    - ``row_slots`` (R,): a FUSED step over the contiguous global cache
+      (S must be 1); row r writes at (row_slots[r], cache_pos[r]), all rows
+      write before any row attends its lane's updated view;
+    - per-slot (B,) ``cache_pos``: each lane writes and attends at its own
+      depth;
+    - scalar ``cache_pos``: the static path, chunked attention for S > 1
+      and decode attention for S == 1.
+
+    With ``use_kernel``, every per-slot path (paged or contiguous, chunk
+    or decode or fused row) attends through the kernel, one row per query
+    token (see `rows_attention`), so a token's attention is the same
+    arithmetic on every path.
     """
     b, s, _ = x.shape
     q, k, v = gqa_project_qkv(x, p, cfg)
@@ -165,7 +317,52 @@ def gqa_attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     new_kv = None
-    if kv_cache is not None:
+    if kv_cache is not None and (block_table is not None or
+                                 row_slots is not None or
+                                 is_per_slot(cache_pos)):
+        ck, cv = kv_cache
+        start = cache_pos
+        if block_table is not None:
+            paged_cache_update(ck, k, start, block_table)
+            paged_cache_update(cv, v, start, block_table)
+            if s == 1:
+                out = paged_decode_attention(q, ck, cv, table=block_table,
+                                             pos=start, window=window,
+                                             use_kernel=use_kernel)
+            elif use_kernel:
+                out = rows_attention(q, ck, cv, table=block_table, pos=start,
+                                     window=window)
+            else:
+                out = paged_ragged_attention(q, ck, cv, table=block_table,
+                                             pos=start, window=window)
+        elif row_slots is not None:
+            # fused step: every row is a width-1 token for GLOBAL lane
+            # row_slots[r] at position start[r]. All rows write first
+            # (distinct cells; padding rows rewrite row 0's cell with row
+            # 0's value), then each row attends its lane's updated view:
+            # earlier siblings are present, later ones sit past start[r]
+            # where the mask never looks
+            rs = row_slots.long()
+            pcols = _pos_vector(start, b, ck.device)
+            ck[rs, pcols] = k[:, 0].to(ck.dtype)
+            cv[rs, pcols] = v[:, 0].to(cv.dtype)
+            if use_kernel:
+                out = rows_attention(q, ck, cv, table=row_slots.to(
+                    torch.int32)[:, None], pos=start, window=window)
+            else:
+                out = decode_attention(q, ck[rs], cv[rs], pos=start,
+                                       window=window)
+        else:
+            slot_cache_update(ck, k, start)
+            slot_cache_update(cv, v, start)
+            if use_kernel:
+                out = rows_attention(q, ck, cv,
+                                     table=_lane_table(b, ck.device),
+                                     pos=start, window=window)
+            else:
+                out = ragged_attention(q, ck, cv, pos=start, window=window)
+        new_kv = (ck, cv)
+    elif kv_cache is not None:
         ck, cv = kv_cache
         start = int(cache_pos) if cache_pos is not None else 0
         if start < 0 or start + s > ck.shape[1]:

@@ -15,16 +15,30 @@ from repro_torch.models.layers import ffn, rms_norm
 
 
 class BlockCtx(NamedTuple):
-    positions: torch.Tensor          # rope positions: (S,)
+    positions: torch.Tensor          # rope positions: (S,) or per-slot (B, S)
     cache: Any                       # this layer's (k, v) cache slice or None
-    cache_pos: Optional[int]         # scalar write offset into the cache
+    cache_pos: Any                   # write offset into the cache: an int
+    #   shared by the batch, or a per-slot (B,) tensor (the serving
+    #   engine's slot-aware step: each lane reads/writes at its own depth)
     window: int                      # sliding window (0 = full)
     causal: bool
     use_rope: bool
     use_kernel: bool
     capture: bool = False            # add pre-FFN activations to aux
-    phase: str = "prefill"           # "prefill" | "decode": expert backend
+    phase: str = "prefill"           # "prefill" | "decode" | "mixed" (a
+    #   fused serving step: backend by its true width); attention ignores it
     backend: Optional[str] = None    # routed-expert backend override
+    token_valid: Optional[torch.Tensor] = None   # (B, S) bool: False =
+    #   padding, which takes no routed-expert work and no load stats
+    block_table: Optional[torch.Tensor] = None   # (B, nblk) int: PAGED
+    #   serving; the cache leaves are a block pool (nblocks, bs, ...), lane
+    #   b's logical block j is physical block_table[b, j] (0 = trash). One
+    #   table serves every layer.
+    row_slots: Optional[torch.Tensor] = None     # (R,) int: FUSED serving
+    #   over the contiguous cache; row r is a width-1 token for lane
+    #   row_slots[r] at cache_pos[r]
+    row_k: Optional[torch.Tensor] = None         # (B,) int: per-row
+    #   effective routed top-k (activation tiers); None = K_max everywhere
 
 
 def _lecun(shape, dtype, device, generator, fan_in=None) -> torch.Tensor:
@@ -100,13 +114,31 @@ def init_dense_block(cfg, dtype, device, generator) -> dict:
     return p
 
 
+def _token_valid_flat(ctx: BlockCtx):
+    """ctx.token_valid (B, S) -> (B*S, 1), matching x's token flattening."""
+    if ctx.token_valid is None:
+        return None
+    return ctx.token_valid.reshape(-1, 1)
+
+
+def _row_k_flat(x: torch.Tensor, ctx: BlockCtx):
+    """ctx.row_k (B,) -> (B*S,) per-token effective k (every token of a
+    row shares the row's tier)."""
+    if ctx.row_k is None:
+        return None
+    b, s = x.shape[0], x.shape[1]
+    return ctx.row_k.reshape(b, 1).expand(b, s).reshape(-1)
+
+
 def _apply_ffn(x: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
     """Dense FFN or (if converted) the CMoE sparse FFN. Returns (y, aux).
     One device: no mesh-local dispatch and no capacity policy."""
     if cfg.cmoe is not None and "cmoe" in p:
         from repro_torch.core.moe_ffn import cmoe_ffn
         return cmoe_ffn(x, p["cmoe"], cfg, use_kernel=ctx.use_kernel,
-                        backend=ctx.backend, phase=ctx.phase)
+                        backend=ctx.backend, phase=ctx.phase,
+                        valid=_token_valid_flat(ctx),
+                        k_row=_row_k_flat(x, ctx))
     if ctx.use_kernel and cfg.activation in ("swiglu", "geglu"):
         from repro_torch.kernels import ops as kops
         y = kops.swiglu_ffn(x, p["ffn"]["wg"], p["ffn"]["wu"],
@@ -119,7 +151,9 @@ def dense_block(x: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
     h, new_kv = gqa_attention(
         rms_norm(x, p["norm1"], cfg.norm_eps), p["attn"], cfg,
         positions=ctx.positions, causal=ctx.causal, window=ctx.window,
-        kv_cache=ctx.cache, cache_pos=ctx.cache_pos, use_rope=ctx.use_rope)
+        kv_cache=ctx.cache, cache_pos=ctx.cache_pos, use_rope=ctx.use_rope,
+        block_table=ctx.block_table, row_slots=ctx.row_slots,
+        use_kernel=ctx.use_kernel)
     x = x + h
     ffn_in = rms_norm(x, p["norm2"], cfg.norm_eps)
     y, aux = _apply_ffn(ffn_in, p, cfg, ctx)

@@ -19,12 +19,43 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     return out.to(x.dtype)
 
 
+# Rows per product call of a float32 matmul on the card (see row_matmul)
+ROW_TILE = 64
+
+
+def row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N), with each row's result independent of how
+    many rows ride the call.
+
+    On the card cuBLAS picks its float32 algorithm by the row count M, and
+    a row's fp32 result changes with it (measured on an H100: widths 1 and
+    2 already differ), which would let the serving engine's micro-batch
+    composition leak into the tokens. A float32 product on CUDA therefore
+    runs in fixed-shape tiles of ROW_TILE rows (the last one zero-padded),
+    one call per tile, so every row goes through the one algorithm of the
+    (ROW_TILE, K) x (K, N) shape. The bfloat16 products of the main path
+    measured width-invariant at widths 1..128 and run as one call, as do all
+    products on the CPU."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        return torch.matmul(x, w)
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1])
+    r = xf.shape[0]
+    pad = (-r) % ROW_TILE
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, pad))
+    out = torch.cat([torch.matmul(xf[i:i + ROW_TILE], w)
+                     for i in range(0, r + pad, ROW_TILE)])
+    return out[:r].reshape(*lead, w.shape[-1])
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with fp32 accumulation, output in x.dtype. Torch's float32
     matmul is exact fp32 (TF32 stays off unless a caller turns it on), and
     its bf16 matmul accumulates in fp32 and rounds once, as the reference's
-    preferred_element_type=f32 followed by a cast."""
-    return torch.matmul(x, w.to(x.dtype))
+    preferred_element_type=f32 followed by a cast. Width-invariant on the
+    card (see row_matmul)."""
+    return row_matmul(x, w.to(x.dtype))
 
 
 # ---------------------------------------------------------------- RoPE
@@ -86,6 +117,7 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def unembed(x: torch.Tensor, table_or_head: torch.Tensor, tied: bool
             ) -> torch.Tensor:
-    """Logits in float32 from fp32 sums (not rounded to x's dtype)."""
+    """Logits in float32 from fp32 sums (not rounded to x's dtype);
+    width-invariant on the card (see row_matmul)."""
     w = table_or_head.T if tied else table_or_head
-    return torch.matmul(x.float(), w.to(x.dtype).float())
+    return row_matmul(x.float(), w.to(x.dtype).float())

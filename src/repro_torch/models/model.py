@@ -3,9 +3,9 @@
 Port of the dense paths of ``repro/models/model.py``. Parameters are nested
 dicts of tensors in the JAX layout: block leaves are stacked over layers as
 (L, ...), and the reference's ``lax.scan`` over that stack becomes a Python
-loop over layers. Caches are (k, v) tuples of (L, B, T, KH, hd) tensors that
-``step`` updates in place. Other families (MoE, MLA, SSM, enc-dec, VLM) are
-not ported yet and raise.
+loop over layers. Caches are (k, v) tuples of (L, B, T, KH, hd) tensors, or
+paged pools of (L, nblocks, bs, KH, hd), that ``step`` updates in place.
+Other families (MoE, MLA, SSM, enc-dec, VLM) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -105,23 +105,35 @@ class Model:
         return embed(tokens, params["embed"])
 
     def _stack(self, params, x: torch.Tensor, *, caches=None,
-               cache_pos: Optional[int] = None, capture: bool = False,
-               phase: str = "prefill", backend: Optional[str] = None):
-        """Run the layer stack. Returns (x, caches, aux) with aux["ffn_in"]
-        stacked over layers when ``capture``."""
+               cache_pos=None, capture: bool = False,
+               phase: str = "prefill", backend: Optional[str] = None,
+               token_valid=None, block_tables=None, row_slots=None,
+               row_k=None):
+        """Run the layer stack. ``cache_pos`` is an int shared by the batch
+        or a per-slot (B,) tensor. Returns (x, caches, aux) with
+        aux["ffn_in"] stacked over layers when ``capture`` and
+        aux["dropped"] summed over layers."""
         cfg = self.cfg
         seq = x.shape[1]
-        start = int(cache_pos) if cache_pos is not None else 0
-        positions = torch.arange(start, start + seq, device=x.device)
+        if isinstance(cache_pos, torch.Tensor):
+            # per-slot offsets -> (B, S) rope positions
+            positions = cache_pos.long()[:, None] + \
+                torch.arange(seq, device=x.device)
+        else:
+            start = int(cache_pos) if cache_pos is not None else 0
+            positions = torch.arange(start, start + seq, device=x.device)
         window = cfg.sliding_window
         base = BlockCtx(positions=positions, cache=None, cache_pos=cache_pos,
                         window=window, causal=True, use_rope=True,
                         use_kernel=self.use_kernel, capture=capture,
                         phase=phase,
                         backend=backend if backend is not None
-                        else self.backend)
+                        else self.backend,
+                        token_valid=token_valid, block_table=block_tables,
+                        row_slots=row_slots, row_k=row_k)
         blocks = params["blocks"]
         taps = []
+        dropped = []
         for li in range(cfg.num_layers):
             p = tree_map(lambda a: a[li], blocks)
             cache_l = None if caches is None else \
@@ -129,8 +141,12 @@ class Model:
             x, _, aux = B.dense_block(x, p, cfg, base._replace(cache=cache_l))
             if capture:
                 taps.append(aux["ffn_in"])
-        aux = {"ffn_in": torch.stack(taps)} if capture else {}
-        return x, caches, aux
+            if "dropped" in aux:
+                dropped.append(aux["dropped"])
+        out = {"ffn_in": torch.stack(taps)} if capture else {}
+        if dropped:
+            out["dropped"] = torch.stack(dropped).sum()
+        return x, caches, out
 
     # ------------------------------------------------------------ public
 
@@ -168,25 +184,76 @@ class Model:
         return (torch.zeros(shape, dtype=dt, device=self.device),
                 torch.zeros(shape, dtype=dt, device=self.device))
 
-    def step(self, params, tokens: torch.Tensor, cache, slot_pos: int, *,
-             phase: Optional[str] = None, backend: Optional[str] = None):
-        """Run tokens (B, S) against the cache at the scalar position
-        ``slot_pos`` shared by the batch (the static path: chunked attention
-        for S > 1, decode attention for S == 1). K/V are written into
-        ``cache`` in place. ``phase`` (default by S) drives the routed-
-        expert backend. Returns (logits (B, V) of the last position,
-        cache). The per-slot (B,) positions of the serving engine come with
-        its slice."""
+    def init_paged_cache(self, num_blocks: int, block_size: int):
+        """Paged KV pool: the per-token layout of ``init_cache`` with the
+        (B, max_len) lane axes replaced by a flat pool of fixed-size blocks,
+        every leaf (L, num_blocks, block_size, KH, hd). Lanes address it
+        through per-slot block tables (``step(block_tables=...)``);
+        physical block 0 is the trash block that absorbs dummy and spill
+        writes (see ``repro_torch.serving.cache.PagedKVCache``)."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        dt = torch_dtype(cfg)
+        return (torch.zeros(shape, dtype=dt, device=self.device),
+                torch.zeros(shape, dtype=dt, device=self.device))
+
+    def step(self, params, tokens: torch.Tensor, cache, slot_pos, *,
+             phase: Optional[str] = None,
+             lengths: Optional[torch.Tensor] = None,
+             return_stats: bool = False,
+             block_tables: Optional[torch.Tensor] = None,
+             row_slots: Optional[torch.Tensor] = None,
+             row_k: Optional[torch.Tensor] = None,
+             backend: Optional[str] = None):
+        """The serving engine's one entry point: run tokens (B, S) against
+        the cache, writing K/V in place.
+
+        ``slot_pos`` is an int shared by the batch (the static path:
+        chunked attention for S > 1, decode attention for S == 1) or a
+        per-slot (B,) tensor: each lane writes and attends at its own
+        depth (a fresh prefill at 0, a resumed chunk at its cursor, a
+        decode at the lane's depth). ``phase`` (default by S; "mixed" for
+        a fused step) drives the routed-expert backend. ``lengths`` (B,)
+        marks each row's valid token count when prompts are right-padded:
+        logits come from position lengths-1 and padding takes no routed
+        work. ``block_tables`` (B, nblk) switches the cache to the PAGED
+        pool of ``init_paged_cache``; ``row_slots`` (B,) makes a FUSED
+        step over the contiguous cache (S must be 1, row r addresses lane
+        row_slots[r]); ``row_k`` (B,) is the per-row routed top-k;
+        ``backend`` overrides the routed-expert backend for this call.
+
+        Returns (logits (B, V) at each row's last valid position, cache),
+        or with ``return_stats`` (logits, cache, {"dropped": device int}),
+        the routed pairs any dispatch failed to keep, summed over layers
+        (zero on every engine backend)."""
         cfg = self.cfg
         s = tokens.shape[1]
         if phase is None:
             phase = "decode" if s == 1 else "prefill"
         x = self._embed(params, {"tokens": tokens})
-        x, cache, _ = self._stack(params, x, caches=cache,
-                                  cache_pos=slot_pos, phase=phase,
-                                  backend=backend)
-        xl = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+        token_valid = None
+        if lengths is not None:
+            lengths = lengths.to(x.device)
+            token_valid = torch.arange(s, device=x.device)[None, :] < \
+                lengths[:, None]
+        x, cache, aux = self._stack(params, x, caches=cache,
+                                    cache_pos=slot_pos, phase=phase,
+                                    backend=backend, token_valid=token_valid,
+                                    block_tables=block_tables,
+                                    row_slots=row_slots, row_k=row_k)
+        if lengths is None:
+            xl = x[:, -1:]
+        else:
+            idx = (lengths.long() - 1)[:, None, None].expand(
+                x.shape[0], 1, x.shape[2])
+            xl = torch.gather(x, 1, idx)
+        xl = rms_norm(xl, params["final_norm"], cfg.norm_eps)
         logits = unembed(xl, self._head(params), cfg.tie_embeddings)[:, 0]
+        if return_stats:
+            dropped = aux.get("dropped", torch.zeros((), dtype=torch.int32,
+                                                     device=x.device))
+            return logits, cache, {"dropped": dropped}
         return logits, cache
 
     def prefill(self, params, batch, *, max_len: Optional[int] = None):

@@ -81,3 +81,48 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands():
                             torch.zeros(1, dtype=torch.int32, device=dev),
                             w[None], w[None], w[None], block_c=96)
     assert tops.LAUNCHES["swiglu_ffn"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("grp,hd,bs,window", [(1, 64, 16, 0), (1, 64, 16, 40),
+                                              (4, 128, 8, 0), (4, 128, 8, 27)])
+def test_cuda_paged_attn_matches_plain(dtype, grp, hd, bs, window):
+    """paged_attn_decode on fragmented tables, with rows sharing a lane,
+    all-trash padding rows, a poisoned trash block and windows that mask
+    whole leading blocks, against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.paged_attention import paged_attn_decode_plain
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    rows, kh, depth = 6, 16 // grp // (2 if grp > 1 else 1), 75
+    nblk = -(-(depth + 1) // bs)
+    nblocks = rows * nblk + 1
+    kp = torch.randn((nblocks, bs, kh, hd), generator=g, device=dev)
+    vp = torch.randn((nblocks, bs, kh, hd), generator=g, device=dev)
+    kp[0], vp[0] = 1e4, -1e4                     # poisoned trash block
+    table = (torch.randperm(nblocks - 1, generator=g, device=dev) + 1)[
+        :rows * nblk].reshape(rows, nblk).to(torch.int32)
+    table[1] = table[0]                          # two rows share a lane
+    table[5] = 0                                 # an all-trash padding row
+    pos = torch.tensor([depth, depth - 5, 60, 33, depth, 0],
+                       dtype=torch.int32, device=dev)
+    q = torch.randn((rows, 1, kh * grp, hd), generator=g, device=dev)
+    q, kp, vp = q.to(dt), kp.to(dt), vp.to(dt)
+    tops.reset_launches()
+    got = tops.paged_attn_decode(q, kp, vp, table=table, pos=pos,
+                                 window=window, scale=hd ** -0.5)
+    ref = paged_attn_decode_plain(q, kp, vp, table, pos, window,
+                                  scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["paged_attn_decode"] == 1
+    assert torch.isfinite(got).all()
+    # the real rows, and the all-trash row (reading the poisoned block),
+    # each against a tolerance of its own scale
+    for sl in (slice(0, 5), slice(5, 6)):
+        tol = (1e-4 if dt == torch.float32 else 2e-2) * \
+            ref[sl].float().abs().max().item()
+        assert (got[sl].float() - ref[sl].float()).abs().max().item() <= tol

@@ -101,5 +101,11 @@ def test_wrappers_route_cpu_tensors_to_plain_without_counting():
     own = torch.tensor([2, 0], dtype=torch.int32)
     r = tops.moe_gmm_ragged(xp, own, *_t(bg, bu, bd), block_c=16)
     assert r.shape == (32, 16)
+    pool = torch.from_numpy(_rand(rng, (3, 4, 2, 8)))
+    a = tops.paged_attn_decode(torch.from_numpy(_rand(rng, (2, 1, 4, 8))),
+                               pool, pool,
+                               table=torch.tensor([[1, 2], [2, 1]]),
+                               pos=torch.tensor([5, 7]), scale=0.5)
+    assert a.shape == (2, 1, 4, 8)
     assert tops.LAUNCHES == {"swiglu_ffn": 0, "moe_gmm_ragged": 0,
-                             "moe_gather": 0}
+                             "moe_gather": 0, "paged_attn_decode": 0}
