@@ -6,16 +6,19 @@
 
 Phases (any failure raises and exits nonzero; no phase catches its own):
   1. device and build: the card's name and power limit (nvidia-smi), then
-     the CUDA kernels built from ``src/repro_torch/kernels/csrc`` with nvcc,
-     one process per source, all started together;
+     the five CUDA kernels built from ``src/repro_torch/kernels/csrc`` with
+     nvcc, one process per source, all started together;
   2. each kernel against its plain PyTorch version on the card at the shapes
      of its path, in float32 (|err| <= 1e-4 max|ref|) and bfloat16 (|err|
      <= 2e-2 max|ref|; sentinel rows of moe_gather exactly zero;
-     paged_attn_decode on fragmented tables, grp 1 and 4, a window that
-     masks whole leading blocks, rows sharing a lane and all-trash padding
-     rows), then timed with CUDA events in bfloat16 beside its plain
-     version, a PyTorch yardstick (library_ms, null where no one PyTorch
-     call computes the function) and its bound on the card;
+     paged_attn_decode and mla_paged_decode on fragmented tables, rows
+     sharing a lane, all-trash padding rows and depths that are not a
+     multiple of the block size, paged_attn_decode also at grp 1 and 4 and
+     a window that masks whole leading blocks), then timed with CUDA events
+     in bfloat16 beside its plain version, a PyTorch yardstick (library_ms,
+     null where no one PyTorch call computes the function) and its bound
+     on the card; moe_gmm_ragged and moe_gather also at deepseek-v2's
+     expert shapes;
   3. the static path at the full width of qwen1.5-0.5b (24 layers, seeded
      random weights): (a) in float32 the kernel path against the plain path
      on one converted model (prefill logits within 1e-3 max|logit|, greedy
@@ -25,11 +28,22 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
   4. the continuous-batching engine at the same width in bfloat16: first
      each dense product of the engine (and the norm) is checked bitwise
      width-invariant on the card (a row alone and inside every width the
-     engine runs); then two runs through the CLI's entry point (overlapped
-     + paged, with parity replays: sequential, contiguous, and in the
-     second run prefix reuse off), with the launch counts zeroed before and
-     read after; every request done, streams identical, zero dropped pairs,
-     a clean pool audit, prefix hits in the second run.
+     engine runs), at qwen1.5-0.5b's and deepseek-v2's shapes; then two
+     runs through the CLI's entry point (overlapped + paged, with parity
+     replays: sequential, contiguous, and in the second run prefix reuse
+     off), with the launch counts zeroed before and read after; every
+     request done, streams identical, zero dropped pairs, a clean pool
+     audit, prefix hits in the second run;
+  5. deepseek-v2-236b at its published widths (MLA with r 512, 128 heads,
+     160 experts top-6 with 2 shared, vocab 102400), cut only in depth:
+     (a) float32, 2 layers: the kernel path against the plain path through
+     Model.step on a paged cache, a prefill chunk then 4 decode steps
+     (logits within 1e-3 max|logit| at every step, greedy tokens compared);
+     (b) bfloat16, 4 layers, the static path through the CLI's entry point
+     (prefill 4 x 32, 16 generated); (c) bfloat16, 4 layers, the engine
+     through the CLI's entry point (the phase 4 arguments without
+     conversion: overlapped + paged, with parity replays), launch counts
+     zeroed before (b) and before (c) and read after each.
 Prints the kernels JSON line, then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -66,6 +80,21 @@ PREFIX_ARGS = ["--prefix-groups", "32", "--prefix-reuse"]
 # at a long context
 PAGED_MAIN = dict(rows=4, kh=16, grp=1, hd=64, bs=16, depth=80)
 PAGED_LONG = dict(rows=32, kh=16, grp=1, hd=64, bs=16, depth=2048)
+
+# deepseek-v2-236b (phase 5): published widths, depth cut to fit one card
+DS_ARCH = "deepseek-v2-236b"
+DS_F32_LAYERS = 2          # float32: 15.9 GB a layer + 4.2 GB of embeddings
+DS_LAYERS = 4              # bfloat16: 7.94 GB a layer + 2.10 GB
+DS_STATIC_ARGS = ["--arch", DS_ARCH, "--layers", str(DS_LAYERS),
+                  "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+                  "--gen", str(GEN), "--seed", "0"]
+DS_ENGINE_ARGS = ["--arch", DS_ARCH, "--layers", str(DS_LAYERS)] + \
+    ENGINE_ARGS[ENGINE_ARGS.index("--continuous"):]
+# mla_paged_decode at the engine's decode shape and at a long context
+# (r = kv_lora_rank, dr = qk_rope_head_dim, scale (dn + dr)^-0.5)
+MLA_MAIN = dict(rows=4, heads=128, r=512, dr=64, bs=16, depth=80)
+MLA_LONG = dict(rows=32, heads=128, r=512, dr=64, bs=16, depth=2048)
+MLA_SCALE = (128 + 64) ** -0.5
 
 
 def nvidia_smi() -> str:
@@ -254,11 +283,14 @@ def kernel_phase() -> dict:
         shape=f"rows={BATCH * top_k} E={n_e} d={d} m={m} "
               f"distinct experts~{distinct:.2f}")
     records["paged_attn_decode"] = paged_attn_phase(g, dev)
+    records["mla_paged_decode"] = mla_phase(g, dev)
+    deepseek_expert_times(g, dev, records)
     for r in records.values():
         lib = "null" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
-        print(f"[time] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}"
-              f" ms, {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+        print(f"[time] {r['name']}: {r['ms']:.4f} ms (bound "
+              f"{r['bound_ms']:.4f} ms, {r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, "
               f"library {lib}")
     return records
 
@@ -375,6 +407,177 @@ def paged_attn_phase(g, dev) -> dict:
                           bound_by=lb_by))
 
 
+def mla_case(g, dev, dtype, *, rows, heads, r, dr, bs, depth, share=False,
+             trash_rows=0):
+    """One mla_paged_decode input set, built as `paged_case` builds its
+    own: latent and rope-key pools with a poisoned trash block 0,
+    fragmented tables, positions spread around `depth`, optional rows
+    sharing a lane and all-trash padding rows."""
+    import torch
+    nblk = -(-(depth + 1) // bs)
+    nblocks = rows * nblk + 1
+    cc = torch.randn((nblocks, bs, r), generator=g, device=dev)
+    cp = torch.randn((nblocks, bs, dr), generator=g, device=dev)
+    perm = torch.randperm(nblocks - 1, generator=g, device=dev)[
+        :rows * nblk] + 1
+    table = perm.reshape(rows, nblk).to(torch.int32)
+    pos = torch.randint(max(depth - 2 * bs, 0), depth + 1, (rows,),
+                        generator=g, device=dev).to(torch.int32)
+    if share:
+        odd = table[1::2].shape[0]
+        table[1::2] = table[0::2][:odd]
+        pos[1::2] = (pos[0::2][:odd] - 3).clamp(min=0)
+    if trash_rows:
+        table = torch.cat([table, table.new_zeros((trash_rows, nblk))])
+        pos = torch.cat([pos, pos.new_zeros(trash_rows)])
+    cc[0], cp[0] = 1e4, -1e4          # the trash block: finite garbage
+    n = table.shape[0]
+    q_abs = torch.randn((n, heads, r), generator=g, device=dev)
+    q_pe = torch.randn((n, heads, dr), generator=g, device=dev)
+    return [t.to(dtype) for t in (q_abs, q_pe, cc, cp)] + [table, pos]
+
+
+def mla_phase(g, dev) -> dict:
+    """mla_paged_decode against its plain version, then timed at the
+    engine's decode shape and at a long context."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import mla_paged_decode_plain
+
+    err = 0.0
+    # depths 75 and 70 are not multiples of the block sizes 16 and 8
+    cases = [dict(rows=6, heads=128, r=512, dr=64, bs=16, depth=75,
+                  share=True, trash_rows=2),
+             dict(rows=5, heads=128, r=512, dr=64, bs=8, depth=70),
+             dict(rows=3, heads=12, r=96, dr=16, bs=16, depth=37,
+                  share=True, trash_rows=1)]
+    for dt in (torch.float32, torch.bfloat16):
+        for c in cases:
+            qa, qp, cc, cp, table, pos = mla_case(g, dev, dt, **c)
+            got = ops.mla_paged_decode(qa, qp, cc, cp, table=table, pos=pos,
+                                       scale=MLA_SCALE)
+            ref = mla_paged_decode_plain(qa, qp, cc, cp, table, pos,
+                                         scale=MLA_SCALE)
+            real = c["rows"]
+            tag = f"mla_paged_decode H={c['heads']} r={c['r']} bs={c['bs']}"
+            e = check(tag, got[:real], ref[:real], dt)
+            if real < got.shape[0]:
+                check(f"{tag} trash rows", got[real:], ref[real:], dt)
+            if dt == torch.bfloat16:
+                err = max(err, e)
+
+    def timed(shape):
+        """Kernel and plain ms at `shape` (every row at depth), and the
+        bound from the live latent and rope-key rows, the queries, out,
+        table and pos."""
+        item = 2                                     # bf16 bytes
+
+        def one_set():
+            *ts, pos = mla_case(g, dev, torch.bfloat16, **shape)
+            return ts + [pos.fill_(shape["depth"])]
+
+        sets = [one_set()]
+        pool_bytes = sum(t.numel() * t.element_size() for t in sets[0])
+        sets += [one_set() for _ in range(n_sets(pool_bytes) - 1)]
+        ms = time_ms(lambda qa, qp, cc, cp, t, p: ops.mla_paged_decode(
+            qa, qp, cc, cp, table=t, pos=p, scale=MLA_SCALE), sets)
+        plain_ms = time_ms(lambda qa, qp, cc, cp, t, p:
+                           mla_paged_decode_plain(qa, qp, cc, cp, t, p,
+                                                  scale=MLA_SCALE), sets)
+        rows, h, r, dr = (shape[k] for k in ("rows", "heads", "r", "dr"))
+        live = shape["depth"] + 1
+        nbytes = (rows * live * (r + dr) * item          # latent, rope key
+                  + rows * h * (2 * r + dr) * item       # q_abs, q_pe, out
+                  + rows * (-(-live // shape["bs"]) + 1) * 4)  # table, pos
+        flops = rows * h * live * (2 * (r + dr) + 2 * r)
+        return ms, plain_ms, bound(flops, nbytes, "bfloat16")
+
+    ms, plain_ms, (b_ms, b_by) = timed(MLA_MAIN)
+    lms, lplain_ms, (lb_ms, lb_by) = timed(MLA_LONG)
+    print(f"[time] mla_paged_decode long context {MLA_LONG}: {lms:.4f} ms "
+          f"(bound {lb_ms:.4f} ms, {lb_by}), plain {lplain_ms:.4f} ms")
+    return dict(
+        name="mla_paged_decode", route="cuda",
+        source="src/repro_torch/kernels/csrc/mla_paged.cu",
+        replaces="src/repro/kernels/paged_attention.py:192", launches=None,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        library_note="no single PyTorch call computes a block-table lookup "
+                     "plus absorbed latent attention", dtype="bfloat16",
+        shape=" ".join(f"{k}={v}" for k, v in MLA_MAIN.items()),
+        long_context=dict(shape=" ".join(f"{k}={v}" for k, v in
+                                         MLA_LONG.items()),
+                          ms=lms, plain_ms=lplain_ms, bound_ms=lb_ms,
+                          bound_by=lb_by))
+
+
+def deepseek_expert_times(g, dev, records: dict) -> None:
+    """moe_gmm_ragged (static prefill, 4 x 32 tokens) and moe_gather (a
+    decode step, 4 tokens) at deepseek-v2's expert shapes: 160 experts of
+    d 5120, m 1536, top-6, bfloat16. Checked against the plain version
+    once, then timed; the records gain a "deepseek" entry."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.experts import ragged_layout, ragged_scatter
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gather import moe_gather_plain
+    from repro_torch.kernels.moe_gmm import moe_gmm_ragged_plain
+
+    moe = get_config(DS_ARCH).moe
+    d = get_config(DS_ARCH).d_model
+    n_e, m, k = moe.num_experts, moe.d_expert, moe.top_k
+    bf = torch.bfloat16
+    block = ops.ragged_block_c()
+    # one bank (7.5 GB), shared by every input set: the sets differ in
+    # tokens and expert ids, and each call's slabs far exceed L2
+    bank = [(torch.randn(s, generator=g, device=dev) * s[1] ** -0.5).to(bf)
+            for s in ((n_e, d, m), (n_e, d, m), (n_e, m, d))]
+
+    def gmm_set():
+        t = BATCH * PROMPT
+        ids = torch.randint(0, n_e, (t * k,), generator=g, device=dev)
+        slot, owner, _, p_total = ragged_layout(ids, n_e, block)
+        x = torch.randn((t, d), generator=g, device=dev).to(bf)
+        return [ragged_scatter(x, k, slot, p_total), owner] + bank, ids
+
+    def gather_set():
+        ids = torch.randint(0, n_e, (BATCH * k,), generator=g,
+                            device=dev).to(torch.int32)
+        x = torch.randn((BATCH, d), generator=g, device=dev).to(bf)
+        return [x, ids] + bank, ids
+
+    def note(name, sets, ids, fn, plain, rows):
+        err = check(f"{name} deepseek-v2 shape", fn(*sets[0]),
+                    plain(*sets[0]), bf)
+        ms = time_ms(fn, sets, iters=10)
+        plain_ms = time_ms(plain, sets, iters=10)
+        live = sum(len(set(i.tolist())) for i in ids) / len(ids)
+        nbytes = 2 * (3 * live * d * m + 2 * rows * d)
+        b_ms, b_by = bound(6 * rows * d * m, nbytes, "bfloat16")
+        records[name]["deepseek"] = dict(
+            shape=f"rows={rows} E={n_e} d={d} m={m} top_k={k} "
+                  f"distinct experts~{live:.1f}", max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"[time] {name} deepseek-v2 shape ({rows} rows, {n_e} "
+              f"experts of {d}x{m}): {ms:.4f} ms (bound {b_ms:.4f} ms, "
+              f"{b_by}), plain {plain_ms:.4f} ms")
+
+    made = [gmm_set() for _ in range(2)]
+    note("moe_gmm_ragged", [a for a, _ in made], [i for _, i in made],
+         lambda xp, o, wg, wu, wd: ops.moe_gmm_ragged(xp, o, wg, wu, wd,
+                                                      block_c=block),
+         lambda xp, o, wg, wu, wd: moe_gmm_ragged_plain(
+             xp, o, wg, wu, wd, "swiglu", block), BATCH * PROMPT * k)
+    made = [gather_set() for _ in range(4)]
+    note("moe_gather", [a for a, _ in made], [i for _, i in made],
+         lambda xf, i, wg, wu, wd: ops.moe_gather(xf, i, wg, wu, wd,
+                                                  top_k=k),
+         lambda xf, i, wg, wu, wd: moe_gather_plain(xf, i, wg, wu, wd,
+                                                    top_k=k), BATCH * k)
+
+
 def f32_agreement() -> None:
     """Phase 3a: kernel path vs plain path on one converted f32 model."""
     import numpy as np
@@ -428,64 +631,125 @@ def f32_agreement() -> None:
 
 
 def width_invariance() -> None:
-    """Phase 4a: every dense product the engine runs (and the norm), on the
-    card in bfloat16 at qwen1.5-0.5b's shapes, gives a row bitwise the same
-    result alone and inside every width the engine runs. Raw float32
-    torch.matmul is measured too: it is the product that needed the
-    port's fixed-tile row_matmul."""
+    """Phase 4a: every dense product the engine runs (and the norms and the
+    MoE gate), on the card in bfloat16 at qwen1.5-0.5b's and deepseek-v2's
+    shapes, gives a row bitwise the same result alone and inside every
+    width the engine runs. Raw torch.matmul and torch.bmm, without the
+    port's fixed row tiles, are measured beside them."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models.layers import matmul, rms_norm, unembed
+    from repro_torch.models.layers import (_ONE_CALL_OK, PROBE_ROWS,
+                                           head_matmul, matmul, rms_norm,
+                                           unembed)
+    from repro_torch.models.moe import moe_gate
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(1)
+    bf = torch.bfloat16
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device=dev) *
+                shape[-2] ** -0.5).to(bf)
+
     cfg = get_config(ARCH)
     d, hd, h = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads
     m = cfg.d_ff // 8
-    bf = torch.bfloat16
-
-    def w(k, n):
-        return (torch.randn((k, n), generator=g, device=dev) * k ** -0.5
-                ).to(bf)
-
-    table = (torch.randn((cfg.vocab_size, d), generator=g, device=dev) *
-             d ** -0.5).to(bf)
+    table = w(cfg.vocab_size, d)
     norm = torch.zeros(d, dtype=bf, device=dev)
     products = {
-        "q/k/v/o projections (d x d)": (d, lambda x, w_=w(d, h * hd):
+        "q/k/v/o projections (d x d)": ((d,), lambda x, w_=w(d, h * hd):
                                         matmul(x, w_)),
-        "shared experts gate/up (d x 3m)": (d, lambda x, w_=w(d, 3 * m):
+        "shared experts gate/up (d x 3m)": ((d,), lambda x, w_=w(d, 3 * m):
                                             matmul(x, w_)),
-        "shared experts down (3m x d)": (3 * m, lambda x, w_=w(3 * m, d):
+        "shared experts down (3m x d)": ((3 * m,), lambda x, w_=w(3 * m, d):
                                          matmul(x, w_)),
-        "router (d x 5)": (d, lambda x, w_=w(d, 5): matmul(x, w_)),
-        "unembed (f32, d x vocab)": (d, lambda x: unembed(x, table, True)),
-        "rms_norm": (d, lambda x: rms_norm(x, norm, cfg.norm_eps)),
+        "router (d x 5)": ((d,), lambda x, w_=w(d, 5): matmul(x, w_)),
+        "unembed (f32, d x vocab)": ((d,), lambda x: unembed(x, table,
+                                                             True)),
+        "rms_norm": ((d,), lambda x: rms_norm(x, norm, cfg.norm_eps)),
     }
-    widths = sorted({1, 2, 3, 4, 8, 12, 16, 20, 24, 28, 32, 36, 64, 65, 128})
-    for name, (k, fn) in products.items():
-        x = torch.randn((max(widths), k), generator=g, device=dev).to(bf)
+    ds = get_config(DS_ARCH)
+    dd, hh, mla, moe = ds.d_model, ds.num_heads, ds.mla, ds.moe
+    qr, r, dr = mla.q_lora_rank, mla.kv_lora_rank, mla.qk_rope_head_dim
+    dn, dv = mla.qk_nope_head_dim, mla.v_head_dim
+    head = w(dd, ds.vocab_size)
+    gate_p = {"router": w(dd, moe.num_experts),
+              "balance_bias": torch.zeros(moe.num_experts, device=dev)}
+    ds_products = {
+        "deepseek q_dproj (5120 x 1536)": ((dd,), lambda x, w_=w(dd, qr):
+                                           matmul(x, w_)),
+        "deepseek q_uproj (1536 x 128*192)": (
+            (qr,), lambda x, w_=w(qr, hh * (dn + dr)): matmul(x, w_)),
+        "deepseek kv_dproj (5120 x 576)": (
+            (dd,), lambda x, w_=w(dd, r + dr): matmul(x, w_)),
+        "deepseek absorption q_nope W_uk (128 heads, 128 x 512)": (
+            (hh, dn), lambda x, w_=w(hh, dn, r): head_matmul(x, w_)),
+        "deepseek value expansion W_uv (128 heads, 512 x 128)": (
+            (hh, r), lambda x, w_=w(hh, r, dv): head_matmul(x, w_)),
+        "deepseek wo (128*128 x 5120)": ((hh * dv,), lambda x,
+                                         w_=w(hh * dv, dd): matmul(x, w_)),
+        "deepseek router + gate (5120 x 160, top-6)": (
+            (dd,), lambda x: moe_gate(x, gate_p, moe)[0]),
+        "deepseek shared experts gate/up (5120 x 3072)": (
+            (dd,), lambda x, w_=w(dd, moe.d_shared): matmul(x, w_)),
+        "deepseek shared experts down (3072 x 5120)": (
+            (moe.d_shared,), lambda x, w_=w(moe.d_shared, dd):
+            matmul(x, w_)),
+        "deepseek unembed (f32, 5120 x 102400)": (
+            (dd,), lambda x: unembed(x, head, False)),
+        "deepseek rms_norm (5120, 1536, 512)": (
+            (dd,), lambda x: torch.cat([
+                rms_norm(x[:, :n], torch.zeros(n, dtype=bf, device=dev))
+                for n in (dd, qr, r)], dim=-1)),
+    }
+    # up to PROBE_ROWS a product may run as one call; above, in row tiles
+    widths = sorted({1, 2, 3, 4, 8, 12, 16, 20, 24, 28, 32, 36, 64, 65, 128,
+                     129, 192})
+    for name, (tail, fn) in {**products, **ds_products}.items():
+        x = torch.randn((max(widths), *tail), generator=g, device=dev).to(bf)
         bad = []
         for wd in widths:
             y = fn(x[:wd])
-            for r in {0, wd - 1}:
-                if not torch.equal(y[r:r + 1], fn(x[r:r + 1])):
+            for row in {0, wd - 1}:
+                if not torch.equal(y[row:row + 1], fn(x[row:row + 1])):
                     bad.append(wd)
                     break
         if bad:
             raise AssertionError(f"{name} is not width-invariant on the "
                                  f"card: widths {bad}")
         print(f"[invariance] {name}: bitwise width-invariant at {widths}")
-    x = torch.randn((max(widths), d), generator=g, device=dev)
+
+    def raw_breaks(fn, tail):
+        x = torch.randn((max(widths), *tail), generator=g, device=dev)
+        return [wd for wd in widths
+                if not torch.equal(fn(x[:wd])[:1], fn(x[:1]))]
+
     wf = table.T.float()
-    raw = [wd for wd in widths
-           if not torch.equal(torch.matmul(x[:wd], wf)[:1],
-                              torch.matmul(x[:1], wf))]
     print(f"[invariance] raw float32 torch.matmul (d x vocab) breaks at "
-          f"widths {raw}: the port runs float32 products in fixed "
-          f"{64}-row tiles")
+          f"widths {raw_breaks(lambda x: x @ wf, (d,))}")
+    for name, k, n in (("q_dproj", dd, qr), ("router", dd, moe.num_experts),
+                       ("shared down", moe.d_shared, dd),
+                       ("wo", hh * dv, dd)):
+        wb = w(k, n)
+        print(f"[invariance] raw bfloat16 torch.matmul deepseek {name} "
+              f"({k} x {n}) breaks at widths "
+              f"{raw_breaks(lambda x: x.to(bf) @ wb, (k,))}")
+    wk = w(hh, dn, r)
+
+    def raw_absorb(x):
+        return torch.bmm(x.to(bf).transpose(0, 1), wk).transpose(0, 1)
+
+    print(f"[invariance] raw bfloat16 torch.bmm deepseek absorption breaks "
+          f"at widths {raw_breaks(raw_absorb, (hh, dn))}: the port runs "
+          f"the per-head products in fixed 64-row tiles")
+    verdicts = {ok: sorted({(str(dt).removeprefix("torch."), tuple(shape))
+                            for (dt, _, shape, _, _), o in
+                            _ONE_CALL_OK.items() if o == ok})
+                for ok in (True, False)}
+    print(f"[invariance] row_matmul probe: one call up to {PROBE_ROWS} rows "
+          f"for {verdicts[True]}; row tiles for {verdicts[False]}")
 
 
 def engine_phase() -> tuple[dict, list]:
@@ -531,6 +795,146 @@ def engine_phase() -> tuple[dict, list]:
               f"parity {res['parity']}")
     print(f"[e2e engine] launches over both runs {launches}")
     return launches, results
+
+
+def deepseek_f32_agreement() -> None:
+    """Phase 5a: deepseek-v2 at full width in float32, cut to DS_F32_LAYERS
+    layers: the kernel path (mla_paged_decode, moe_gmm_ragged, moe_gather)
+    against the plain path on one set of weights, through Model.step on a
+    paged cache with fragmented tables: a 32-token prefill chunk on 4
+    lanes, then 4 decode steps. Both paths are fed the kernel path's greedy
+    tokens, so every step's logits are comparable."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import override
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    cfg = override(get_config(DS_ARCH), dtype="float32",
+                   num_layers=DS_F32_LAYERS)
+    k_model = build_model(cfg, use_kernel=True, device=dev)
+    p_model = build_model(cfg, use_kernel=False, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = k_model.init(gen)
+    torch.cuda.synchronize()
+    print(f"[e2e deepseek f32] {DS_ARCH} at published widths, "
+          f"{DS_F32_LAYERS} layers, float32: init "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    rows, steps, bs = BATCH, 4, 16
+    nblk = -(-(PROMPT + steps) // bs)
+    table = (torch.randperm(rows * nblk, generator=gen, device=dev) + 1
+             ).reshape(rows, nblk).to(torch.int32)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (rows, PROMPT)), dtype=torch.long, device=dev)
+    feed = [prompts]
+    logits = {}
+    for tag, m in (("kernel", k_model), ("plain", p_model)):
+        pool = m.init_paged_cache(1 + rows * nblk, bs)
+        out = []
+        for i in range(steps + 1):
+            start = torch.full((rows,), 0 if i == 0 else PROMPT + i - 1,
+                               dtype=torch.int32, device=dev)
+            lg, pool, stats = m.step(params, feed[i], pool, start,
+                                     block_tables=table, return_stats=True)
+            if int(stats["dropped"]):
+                raise AssertionError(f"{tag} path dropped routed pairs")
+            out.append(lg.float())
+            if tag == "kernel" and i < steps:
+                feed.append(torch.argmax(lg, -1)[:, None])
+        logits[tag] = out
+    worst = 0.0
+    agree = 0
+    for i, (lk, lp) in enumerate(zip(logits["kernel"], logits["plain"])):
+        err = (lk - lp).abs().max().item()
+        scale = lp.abs().max().item()
+        worst = max(worst, err / scale)
+        if not (torch.isfinite(lk).all() and err <= 1e-3 * scale):
+            raise AssertionError(f"deepseek f32 step {i}: kernel path "
+                                 f"disagrees with the plain path ({err:.3e}"
+                                 f" > 1e-3 x {scale:.3e})")
+        agree += int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    print(f"[e2e deepseek f32] kernel vs plain over a prefill chunk and "
+          f"{steps} decode steps: max|err| / max|logit| {worst:.3e} (tol "
+          f"1e-3); greedy tokens agree {agree}/{rows * (steps + 1)}")
+
+
+def deepseek_serving() -> dict:
+    """Phases 5b and 5c: deepseek-v2 at full width in bfloat16, cut to
+    DS_LAYERS layers, through the CLI's entry point: the static path, then
+    the engine. Launch counts are zeroed before each and read after.
+    Returns the engine run's launch counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    print(f"[cut] {DS_ARCH}: depth 60 -> {DS_F32_LAYERS} layers (phase 5a, "
+          f"float32) and {DS_LAYERS} layers (phases 5b and 5c, bfloat16); "
+          f"every width as published; requests and generated tokens as in "
+          f"phases 3b and 4")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = serve.run(DS_STATIC_ARGS)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    toks = torch.as_tensor(res["tokens"])
+    from repro_torch.configs import get_config
+    vocab = get_config(DS_ARCH).vocab_size
+    if toks.shape != (BATCH, GEN) or toks.min() < 0 or \
+            toks.max() >= vocab or \
+            not torch.isfinite(res["prefill_logits"]).all():
+        raise AssertionError(f"bad deepseek serve output: tokens "
+                             f"{tuple(toks.shape)}")
+    if res["backends"] != {"prefill": "grouped_kernel", "decode": "gather"}:
+        raise AssertionError(f"deepseek backends per phase: "
+                             f"{res['backends']}")
+    for name in ("moe_gmm_ragged", "moe_gather"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"deepseek static path")
+    print(f"[e2e deepseek bf16] static: prefill {res['prefill_ms']:.2f} ms "
+          f"({BATCH}x{PROMPT}, median of {serve.PREFILL_REPEATS} warm), "
+          f"decode {res['decode_tok_s']:.1f} tok/s ({BATCH} lanes, "
+          f"{GEN - 1} steps), peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, launches "
+          f"{launches}")
+    del res
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    res = serve.run(DS_ENGINE_ARGS)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    rep = res["report"]
+    if res["parity"] != ["overlap == sequential", "paged == contiguous"]:
+        raise AssertionError(f"deepseek engine parity replays "
+                             f"{res['parity']}")
+    if not all(r.done for r in rep.requests) or rep.dropped_pairs or \
+            not rep.pool_audit.get("ok") or rep.pool_audit.get("allocated"):
+        raise AssertionError(f"deepseek engine: unfinished requests, drops "
+                             f"or a bad audit {rep.pool_audit}")
+    for name in ("mla_paged_decode", "moe_gmm_ragged", "moe_gather"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"deepseek engine's path")
+    bc = {ph: dict(c) for ph, c in rep.backend_counts.items()}
+    print(f"[e2e deepseek engine] {rep.num_requests} requests, "
+          f"{rep.total_new_tokens} tokens in {rep.steps} steps, wall "
+          f"{rep.wall_s:.3f} s, goodput {rep.goodput:.1f} tok/s, TTFT "
+          f"p50/p95 {rep.ttft_p50_s * 1e3:.1f}/{rep.ttft_p95_s * 1e3:.1f} "
+          f"ms, TPOT p50/p95 {rep.tpot_p50_s * 1e3:.2f}/"
+          f"{rep.tpot_p95_s * 1e3:.2f} ms, overlap occupancy "
+          f"{rep.overlap_occupancy:.3f}, backends {bc}, audit "
+          f"{rep.pool_audit}, parity {res['parity']}, launches {launches}")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -611,11 +1015,19 @@ def main(argv=None) -> int:
     # phase 4: the continuous-batching engine, paged, overlapped
     width_invariance()
     launches, _ = engine_phase()
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("swiglu_ffn", "moe_gmm_ragged", "moe_gather",
+                 "paged_attn_decode"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"engine's path")
-        records[name]["launches"] = n
+        records[name]["launches"] = launches[name]
+
+    # phase 5: deepseek-v2 at full width, cut in depth
+    deepseek_f32_agreement()
+    launches = deepseek_serving()
+    records["mla_paged_decode"]["launches"] = launches["mla_paged_decode"]
+    for name in ("moe_gmm_ragged", "moe_gather"):
+        records[name]["launches_deepseek_engine"] = launches[name]
 
     print(smi)
     print(json.dumps({"kernels": list(records.values())}))

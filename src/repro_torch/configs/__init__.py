@@ -1,7 +1,8 @@
 """Architecture registry. Each module exposes config() and smoke_config().
 
 The port lists every arch of the JAX package, but only the dense GQA
-SwiGLU family runs here so far; the others raise until their slice lands.
+SwiGLU family and deepseek-v2's MLA + pretrained MoE run here so far; the
+others raise until their slice lands.
 """
 from __future__ import annotations
 
@@ -14,11 +15,13 @@ ARCHS = {
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     # the paper's own evaluation model (dense llama-2 family)
     "llama2-7b": "llama2_7b",
+    # multi-head latent attention + the pretrained top-6-of-160 MoE
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
 # archs of the JAX package whose families the port does not run yet
 NOT_PORTED = (
-    "llama4-maverick-400b-a17b", "deepseek-v2-236b", "granite-34b",
+    "llama4-maverick-400b-a17b", "granite-34b",
     "gemma3-4b", "phi3-medium-14b", "whisper-small", "zamba2-1.2b",
     "mamba2-370m", "internvl2-26b",
 )

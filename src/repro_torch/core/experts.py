@@ -284,7 +284,7 @@ def select_backend(t: int, cfg, phase: str, *, use_kernel: bool = False,
     The break-even is weight traffic: gather reads t*k expert slabs,
     grouped reads each expert's slab once, so gather wins roughly while
     t*k <= E; the threshold is max(8, E / k). Bank shape comes from
-    num_experts/top_k when the caller knows it, else from cfg.cmoe.
+    num_experts/top_k when the caller knows it, else from cfg.cmoe or cfg.moe.
 
     Phase "mixed" is the overlapped engine's fused step (decode rows and
     flattened chunk rows in one (R, 1) dispatch): it skips decode's
@@ -292,10 +292,13 @@ def select_backend(t: int, cfg, phase: str, *, use_kernel: bool = False,
     ``effective_k`` (a micro-batch's mean per-row k under activation
     tiers) replaces top_k in the break-even."""
     if num_experts is None or top_k is None:
-        spec = getattr(cfg, "cmoe", None)
-        if spec is not None:
-            num_experts = num_experts or spec.num_routed
-            top_k = top_k or spec.top_k
+        cm, moe = getattr(cfg, "cmoe", None), getattr(cfg, "moe", None)
+        if cm is not None:
+            num_experts = num_experts or cm.num_routed
+            top_k = top_k or cm.top_k
+        elif moe is not None:
+            num_experts = num_experts or moe.num_experts
+            top_k = top_k or moe.top_k
     threshold = GATHER_TOKEN_THRESHOLD
     if num_experts and top_k:
         k_eff = max(float(effective_k), 1.0) if effective_k else \
@@ -315,11 +318,9 @@ def microbatch_backend(cfg, num_tokens: int, phase: str, *,
     micro-batch of this model: None without routed experts, the override
     when one is pinned, else the auto choice (grouped_kernel falls back to
     grouped_plain for non-glu banks, which the kernel does not take)."""
-    if getattr(cfg, "cmoe", None) is None:
+    if getattr(cfg, "cmoe", None) is None and \
+            getattr(cfg, "moe", None) is None:
         return None
-    if getattr(cfg, "moe", None) is not None:
-        raise NotImplementedError("hierarchical (MoE + CMoE) models are not "
-                                  "ported yet")
     if override not in (None, "auto"):
         return override
     be = select_backend(num_tokens, cfg, phase, use_kernel=use_kernel,

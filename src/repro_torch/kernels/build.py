@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("swiglu", "moe_gmm", "moe_gather", "paged_attn")
+SOURCES = ("swiglu", "moe_gmm", "moe_gather", "paged_attn", "mla_paged")
 HEADERS = ("ffn_core.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -37,6 +37,8 @@ SIGNATURES = {
     "moe_gather": ("moe_gather_launch", [_P] * 7 + [_I] * 7 + [_P]),
     "paged_attn": ("paged_attn_decode_launch",
                    [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
+    "mla_paged": ("mla_paged_decode_launch",
+                  [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -20,11 +20,14 @@ import torch
 from repro_torch.kernels.moe_gather import moe_gather_cuda, moe_gather_plain
 from repro_torch.kernels.moe_gmm import (CUDA_TILE_ROWS, moe_gmm_ragged_cuda,
                                          moe_gmm_ragged_plain)
-from repro_torch.kernels.paged_attention import (paged_attn_decode_cuda,
+from repro_torch.kernels.paged_attention import (mla_paged_decode_cuda,
+                                                 mla_paged_decode_plain,
+                                                 paged_attn_decode_cuda,
                                                  paged_attn_decode_plain)
 from repro_torch.kernels.swiglu import swiglu_ffn_cuda, swiglu_ffn_plain
 
-KERNELS = ("swiglu_ffn", "moe_gmm_ragged", "moe_gather", "paged_attn_decode")
+KERNELS = ("swiglu_ffn", "moe_gmm_ragged", "moe_gather", "paged_attn_decode",
+           "mla_paged_decode")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 # Row tile of the ragged expert layout ``moe_gmm_ragged`` consumes: one
@@ -130,4 +133,26 @@ def paged_attn_decode(q: torch.Tensor, k_pool: torch.Tensor,
         pos.to(device=q.device, dtype=torch.int32).reshape(-1).contiguous(),
         int(window), scale=scale)
     LAUNCHES["paged_attn_decode"] += 1
+    return out
+
+
+def mla_paged_decode(q_abs: torch.Tensor, q_pe: torch.Tensor,
+                     cc_pool: torch.Tensor, cp_pool: torch.Tensor, *,
+                     table: torch.Tensor, pos: torch.Tensor, scale: float
+                     ) -> torch.Tensor:
+    """q_abs: (B, H, r) queries absorbed through W_uk, in the pools' dtype;
+    q_pe: (B, H, dr) rope queries; cc_pool: (nblocks, bs, r) latents;
+    cp_pool: (nblocks, bs, dr) rope keys; table: (B, nblk) block tables
+    (0 = trash/unallocated); pos: (B,) last valid logical index per row.
+    Returns o_lat (B, H, r), the softmax-weighted latent."""
+    if not _route(q_abs):
+        return mla_paged_decode_plain(q_abs, q_pe, cc_pool, cp_pool, table,
+                                      pos, scale=scale)
+    dev = q_abs.device
+    out = mla_paged_decode_cuda(
+        q_abs.contiguous(), q_pe.contiguous(), cc_pool, cp_pool,
+        table.to(device=dev, dtype=torch.int32).contiguous(),
+        pos.to(device=dev, dtype=torch.int32).reshape(-1).contiguous(),
+        scale=scale)
+    LAUNCHES["mla_paged_decode"] += 1
     return out

@@ -1,4 +1,6 @@
-"""GQA single-query attention straight off a block pool.
+"""Single-query attention straight off a block pool: GQA
+(``paged_attn_decode``) and deepseek-v2's absorbed multi-head latent
+attention (``mla_paged_decode``).
 
 Port of the Pallas kernel ``repro/kernels/paged_attention.py::
 paged_attn_decode``: row b is one query token at logical position pos[b]
@@ -10,7 +12,16 @@ states the bound on an H100 and the design); the plain version below is the
 materializing oracle of ``repro/kernels/ref.py::paged_attn_decode_ref``:
 assemble each row's logical view through the table, then masked softmax.
 
-The kernel reads keys only up to the row's view (table width x block
+Port of the Pallas kernel ``repro/kernels/paged_attention.py::
+mla_paged_decode``: row b scores its absorbed query q_abs (H, r) against
+the lane's latents and its rope query q_pe (H, dr) against the lane's rope
+keys, masks positions past pos[b], and returns the softmax-weighted latent
+o_lat (H, r) in q_abs's dtype (the caller expands it through W_uv); p is
+rounded to the latent's dtype before the value product. The CUDA kernel is
+``csrc/mla_paged.cu``; the plain version is the oracle
+``repro/kernels/ref.py::mla_paged_decode_ref``.
+
+The kernels read keys only up to the row's view (table width x block
 size), so a contiguous cache lane, handed over as a pool of one block of
 the lane's whole length, is read by the same arithmetic as a paged lane.
 """
@@ -28,6 +39,8 @@ NEG_INF = -1e30
 # at most 256, and grp * hd at most 128 threads x 16 accumulators
 MAX_HEAD_DIM = 256
 MAX_GROUP_ELEMS = 128 * 16
+# csrc/mla_paged.cu limits: r and dr multiples of 8, at most 1024
+MLA_MAX_RANK = 1024
 
 
 def paged_attn_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -89,4 +102,72 @@ def paged_attn_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         pos.data_ptr(), out.data_ptr(), b, kh, grp, hd, table.shape[1], bs,
         int(window), float(scale), dt, stream_ptr(dev))
     raise_on_error(err, "paged_attn_decode")
+    return out
+
+
+def mla_view_attention(q_abs: torch.Tensor, q_pe: torch.Tensor,
+                       cc: torch.Tensor, cp: torch.Tensor, pos, *,
+                       scale: float) -> torch.Tensor:
+    """Absorbed MLA attention of one query per row against each row's
+    logical view. q_abs: (B, H, r); q_pe: (B, H, dr); cc: (B, T, r); cp:
+    (B, T, dr); pos: (B,) last valid position per row. Scores and the
+    value product are fp32 sums, p is rounded to cc's dtype between them.
+    Returns o_lat (B, H, r) in q_abs's dtype."""
+    t = cc.shape[1]
+    s = (torch.einsum("bhr,btr->bht", q_abs.float(), cc.float()) +
+         torch.einsum("bhp,btp->bht", q_pe.float(), cp.float())) * scale
+    p_b = torch.as_tensor(pos, device=cc.device).long().reshape(-1, 1, 1)
+    mask = torch.arange(t, device=cc.device)[None, None, :] <= p_b
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(cc.dtype)
+    return torch.einsum("bht,btr->bhr", p.float(), cc.float()).to(
+        q_abs.dtype)
+
+
+def mla_paged_decode_plain(q_abs: torch.Tensor, q_pe: torch.Tensor,
+                           cc_pool: torch.Tensor, cp_pool: torch.Tensor,
+                           table: torch.Tensor, pos: torch.Tensor, *,
+                           scale: float) -> torch.Tensor:
+    """q_abs: (B, H, r); q_pe: (B, H, dr); cc_pool: (nblocks, bs, r);
+    cp_pool: (nblocks, bs, dr); table: (B, nblk) int; pos: (B,) int.
+    Returns o_lat (B, H, r) in q_abs's dtype."""
+    b, nblk = table.shape
+    tl = table.long().to(cc_pool.device)
+    cc = cc_pool[tl].reshape(b, nblk * cc_pool.shape[1], -1)
+    cp = cp_pool[tl].reshape(b, nblk * cp_pool.shape[1], -1)
+    return mla_view_attention(q_abs, q_pe, cc, cp, pos, scale=scale)
+
+
+def mla_paged_decode_cuda(q_abs: torch.Tensor, q_pe: torch.Tensor,
+                          cc_pool: torch.Tensor, cp_pool: torch.Tensor,
+                          table: torch.Tensor, pos: torch.Tensor, *,
+                          scale: float) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream. table and pos must be
+    contiguous int32 on the pools' device."""
+    dt, dev = check_float_operands(q_abs, q_pe, cc_pool, cp_pool)
+    b, h, r = q_abs.shape
+    nblocks, bs, r_c = cc_pool.shape
+    dr = q_pe.shape[-1]
+    if q_pe.shape != (b, h, dr) or r_c != r or \
+            cp_pool.shape != (nblocks, bs, dr):
+        raise ValueError(f"q_abs {tuple(q_abs.shape)}, q_pe "
+                         f"{tuple(q_pe.shape)} and pools "
+                         f"{tuple(cc_pool.shape)} / {tuple(cp_pool.shape)} "
+                         f"do not form an absorbed MLA call")
+    if r % 8 or dr % 8 or r > MLA_MAX_RANK or dr > MLA_MAX_RANK:
+        raise ValueError(f"the kernel takes r and dr multiples of 8 up to "
+                         f"{MLA_MAX_RANK}; got r={r}, dr={dr}")
+    for name, t, shape in (("table", table, (b, table.shape[-1])),
+                           ("pos", pos, (b,))):
+        if t.dtype != torch.int32 or t.device != dev or \
+                not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a contiguous int32 {shape} "
+                             f"tensor on {dev}; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    out = torch.empty_like(q_abs)
+    err = build.entry("mla_paged")(
+        q_abs.data_ptr(), q_pe.data_ptr(), cc_pool.data_ptr(),
+        cp_pool.data_ptr(), table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        b, h, r, dr, table.shape[1], bs, float(scale), dt, stream_ptr(dev))
+    raise_on_error(err, "mla_paged_decode")
     return out

@@ -1,6 +1,6 @@
-"""Serving CLI: build a dense model from a seed, optionally convert it to
-CMoE on a synthetic calibration batch, then serve. Port of
-``repro/launch/serve.py``.
+"""Serving CLI: build a model from a seed (a dense decoder, optionally
+converted to CMoE on a synthetic calibration batch, or deepseek-v2's MLA +
+pretrained MoE as it stands), then serve. Port of ``repro/launch/serve.py``.
 
 Static mode (default): one prefill and a greedy (or temperature) decode
 loop. ``--continuous``: the continuous-batching engine
@@ -13,8 +13,12 @@ chunked prefill (``--max-prefill-tokens``), the paged block pool
 Runs on the GPU (``cuda``) unless ``--device cpu`` is given, and raises when
 no GPU is present and the CPU was not asked for. ``--use-kernel`` defaults
 to on exactly on CUDA; ``--no-use-kernel`` runs the plain PyTorch path.
+``--layers N`` cuts the depth (widths stay as published) so that a large
+arch fits one card. ``--cmoe`` on an MoE arch (hierarchical conversion) is
+not ported yet and raises, the ``--smoke --continuous`` default included.
 
     python -m repro_torch.launch.serve --cmoe S3A3E8
+    python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 4
     python -m repro_torch.launch.serve --smoke --cmoe S3A3E8 --device cpu
     python -m repro_torch.launch.serve --smoke --continuous --paged \
         --parity --device cpu
@@ -67,6 +71,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config, in float32")
     ap.add_argument("--cmoe", default=None, help="SxAyEz conversion tag")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the arch's depth to N layers (its widths stay "
+                         "as published)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -162,6 +169,17 @@ def run(argv=None) -> dict:
     backend = None if args.backend in (None, "auto", "all") else args.backend
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = override(cfg, dtype="float32") if args.smoke else cfg
+    if args.cmoe and cfg.moe is not None:
+        # refused before the model is built: a full-depth MoE arch does not
+        # fit the card, so the block's own refusal would never be reached
+        raise NotImplementedError(
+            f"hierarchical CMoE (--cmoe {args.cmoe} on the MoE arch "
+            f"{cfg.name}) is not ported yet")
+    if args.layers is not None:
+        print(f"[layers] depth cut from {cfg.num_layers} to {args.layers} "
+              f"layers; widths as published (d_model {cfg.d_model}, "
+              f"{cfg.num_heads} heads, vocab {cfg.vocab_size})")
+        cfg = override(cfg, num_layers=args.layers)
     use_kernel = device.type == "cuda" if args.use_kernel is None \
         else args.use_kernel
     model = build_model(cfg, use_kernel=use_kernel, backend=backend,
@@ -227,7 +245,8 @@ def run(argv=None) -> dict:
         (logits, cache), dt = run_prefill()
         times.append(dt)
     t_prefill = statistics.median(times)
-    every_backend = args.backend == "all" and model.cfg.cmoe is not None
+    every_backend = args.backend == "all" and (
+        model.cfg.cmoe is not None or model.cfg.moe is not None)
     # the post-prefill state each backend of 'all' decodes from
     cache0 = tree_map(torch.clone, cache) if every_backend else None
     steps = args.gen - 1      # prefill's argmax supplies the first token

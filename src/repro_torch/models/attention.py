@@ -1,11 +1,13 @@
-"""GQA attention, forward only: chunked (flash-style) causal attention,
-per-slot (ragged) attention against a contiguous KV cache, and the paged
-block-pool cache of the serving engine.
+"""Attention, forward only: GQA and deepseek-v2's multi-head latent
+attention (MLA), with chunked (flash-style) causal attention, per-slot
+(ragged) attention against a contiguous cache, and the paged block-pool
+cache of the serving engine.
 
-Port of the GQA paths of ``repro/models/attention.py``. Written as
-plain tensor code (no fused attention operator): the chunked forward keeps
-the reference's online softmax over KV chunks, with the same rounding
-points, and masks the keys its padding adds.
+Port of ``repro/models/attention.py`` (the training backward is not
+ported). Written as plain tensor code (no fused attention operator) around
+the two attention kernels: the chunked forward keeps the reference's online
+softmax over KV chunks, with the same rounding points, and masks the keys
+its padding adds.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import apply_rope, matmul
+from repro_torch.kernels.paged_attention import mla_view_attention
+from repro_torch.models.layers import apply_rope, head_matmul, matmul, rms_norm
 
 NEG_INF = -1e30
 
@@ -380,3 +383,246 @@ def gqa_attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
         out = chunked_attention(q, k, v, causal=causal, window=window)
     out = matmul(out.reshape(b, s, -1), p["wo"].reshape(-1, cfg.d_model))
     return out, new_kv
+
+
+# ------------------------------------------------------------------ MLA
+
+def mla_rows_attention(q_abs: torch.Tensor, q_pe: torch.Tensor,
+                       cc_pool: torch.Tensor, cp_pool: torch.Tensor, *,
+                       table: torch.Tensor, pos,
+                       scale: float) -> torch.Tensor:
+    """Per-slot absorbed MLA attention through the ``mla_paged_decode``
+    kernel, one kernel row per query token: query i of lane b becomes a
+    row at position pos[b] + i reading lane b's table. q_abs: (B, S, H,
+    r); q_pe: (B, S, H, dr); table: (B, nblk). Returns o_lat (B, S, H, r).
+    As `rows_attention` does for GQA, this gives a token bitwise the same
+    output on every per-slot path (chunk, decode, fused row; paged or
+    contiguous lane)."""
+    from repro_torch.kernels import ops as kops
+    b, s, h, r = q_abs.shape
+    rows_pos = (_pos_vector(pos, b, q_abs.device)[:, None] +
+                torch.arange(s, device=q_abs.device)).reshape(-1)
+    tl = table if s == 1 else \
+        table[:, None].expand(b, s, table.shape[1]).reshape(b * s, -1)
+    out = kops.mla_paged_decode(
+        q_abs.reshape(b * s, h, r), q_pe.reshape(b * s, h, -1), cc_pool,
+        cp_pool, table=tl, pos=rows_pos, scale=scale)
+    return out.reshape(b, s, h, r)
+
+
+def _expand_kv(cc: torch.Tensor, cp: torch.Tensor, wkv: torch.Tensor, *,
+               dn: int, dtype) -> tuple:
+    """Per-head keys and values from latents: cc (B, T, r), cp (B, T, dr),
+    wkv (r, H, dn + dv) -> k (B, T, H, dn + dr), v (B, T, H, dv) in
+    `dtype` (fp32 sums rounded once)."""
+    b, t, r = cc.shape
+    h = wkv.shape[1]
+    kv = matmul(cc, wkv.reshape(r, -1)).reshape(b, t, h, -1).to(dtype)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    k = torch.cat([k_nope, cp[:, :, None, :].expand(
+        b, t, h, cp.shape[-1]).to(dtype)], dim=-1)
+    return k, v
+
+
+def mla_attention(x: torch.Tensor, p: dict, cfg, *,
+                  positions: torch.Tensor,
+                  kv_cache: Optional[tuple] = None, cache_pos=None,
+                  block_table: Optional[torch.Tensor] = None,
+                  row_slots: Optional[torch.Tensor] = None,
+                  use_kernel: bool = False):
+    """DeepSeek-v2 multi-head latent attention. Returns (out (B,S,d),
+    new_cache).
+
+    The cache holds the compressed latent c_kv (.., T, r) and the rope key
+    (.., T, dr), written IN PLACE (the JAX reference returns updated
+    copies). Decode runs the ABSORBED form: q_nope goes through W_uk so
+    scores contract against the latent, and the softmax-weighted latent is
+    expanded through W_uv. The cache branches follow ``gqa_attention``:
+
+    - no cache: per-head K/V expanded from the latents, chunked attention;
+    - scalar ``cache_pos`` (the static path): a prefill runs the flash
+      loop that expands K/V per KV chunk (`_mla_flash_prefill`), a decode
+      step the absorbed form against the contiguous cache;
+    - ``block_table`` (paged pools (nblocks, bs, r) / (nblocks, bs, dr)),
+      ``row_slots`` (a fused step over the contiguous global cache: all
+      rows write before any attends) and per-slot ``cache_pos``: a decode
+      step runs the absorbed form over each row's view, a prefill chunk
+      the expanded K/V with per-slot masks, as the reference does.
+
+    With ``use_kernel``, every per-slot path (paged or contiguous, chunk or
+    decode or fused row) attends in the absorbed form through the
+    ``mla_paged_decode`` kernel, one row per query token (see
+    `mla_rows_attention`): a token's attention is then the same arithmetic
+    on every path, which keeps the engine's parity gates exact on the
+    card. It agrees with the reference's expanded prefill within float
+    tolerance."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    r = m.kv_lora_rank
+    scale = (dn + dr) ** -0.5
+
+    # queries through the low-rank projection
+    cq = rms_norm(matmul(x, p["q_dproj"]), p["q_norm"], 1e-5)
+    q = matmul(cq, p["q_uproj"].reshape(m.q_lora_rank, -1)).reshape(
+        b, s, h, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    # the compressed KV and the shared rope key
+    ckv = matmul(x, p["kv_dproj"])
+    c_kv = rms_norm(ckv[..., :r], p["kv_norm"], 1e-5)
+    k_pe = apply_rope(ckv[..., None, r:], positions, cfg.rope_theta)
+    k_pe = k_pe[..., 0, :]                               # one shared head
+    wkv = p["kv_uproj"].reshape(r, h, dn + dv)
+    wk, wv = wkv[..., :dn], wkv[..., dn:]
+
+    def absorb(qn):                      # (B, S, H, dn) -> (B, S, H, r)
+        return head_matmul(qn.reshape(b * s, h, dn),
+                           wk.permute(1, 2, 0)).reshape(b, s, h, r)
+
+    def expand(o_lat):                   # (B, S, H, r) -> (B, S, H, dv)
+        return head_matmul(o_lat.reshape(b * s, h, r).to(x.dtype),
+                           wv.permute(1, 0, 2)).reshape(b, s, h, dv)
+
+    def absorbed(cc, cp, pos):
+        """One query per row against row views cc (B, T, r), cp (B, T,
+        dr), masked at pos."""
+        o_lat = mla_view_attention(absorb(q_nope)[:, 0].to(cc.dtype),
+                                   q_pe[:, 0].to(cc.dtype), cc, cp, pos,
+                                   scale=scale)
+        return expand(o_lat[:, None])
+
+    def expanded_ragged(cc, cp, pos):
+        k, v = _expand_kv(cc, cp, wkv, dn=dn, dtype=x.dtype)
+        return ragged_attention(torch.cat([q_nope, q_pe], dim=-1), k, v,
+                                pos=pos, scale=scale)
+
+    new_cache = None
+    if kv_cache is not None and (block_table is not None or
+                                 row_slots is not None or
+                                 is_per_slot(cache_pos)):
+        cc, cp = kv_cache
+        start = cache_pos
+        if block_table is not None:
+            paged_cache_update(cc, c_kv, start, block_table)
+            paged_cache_update(cp, k_pe, start, block_table)
+            table = block_table
+
+            def view():
+                return paged_view(cc, table), paged_view(cp, table)
+        elif row_slots is not None:
+            # fused step: all rows write first (distinct cells; padding
+            # rows rewrite row 0's cell with row 0's value), then each row
+            # attends its lane's updated view, whose mask (<= start[r])
+            # keeps same-step siblings causal
+            rs = row_slots.long()
+            pcols = _pos_vector(start, b, cc.device)
+            cc[rs, pcols] = c_kv[:, 0].to(cc.dtype)
+            cp[rs, pcols] = k_pe[:, 0].to(cp.dtype)
+            table = row_slots.to(torch.int32)[:, None]
+
+            def view():
+                return cc[rs], cp[rs]
+        else:
+            slot_cache_update(cc, c_kv, start)
+            slot_cache_update(cp, k_pe, start)
+            table = _lane_table(b, cc.device)
+
+            def view():
+                return cc, cp
+        new_cache = (cc, cp)
+        if use_kernel:
+            o_lat = mla_rows_attention(absorb(q_nope).to(cc.dtype),
+                                       q_pe.to(cc.dtype), cc, cp,
+                                       table=table, pos=start, scale=scale)
+            out = expand(o_lat)
+        elif s == 1:
+            out = absorbed(*view(), _pos_vector(start, b, cc.device))
+        else:
+            out = expanded_ragged(*view(), start)
+    elif kv_cache is not None:
+        cc, cp = kv_cache
+        start = int(cache_pos) if cache_pos is not None else 0
+        if start < 0 or start + s > cc.shape[1]:
+            raise ValueError(f"cache write [{start}, {start + s}) outside "
+                             f"a cache of length {cc.shape[1]}")
+        cc[:, start:start + s] = c_kv.to(cc.dtype)
+        cp[:, start:start + s] = k_pe.to(cp.dtype)
+        new_cache = (cc, cp)
+        if s == 1:
+            out = absorbed(cc, cp, _pos_vector(start, b, cc.device))
+        else:
+            out = _mla_flash_prefill(torch.cat([q_nope, q_pe], dim=-1), cc,
+                                     cp, wk, wv, scale=scale, q_offset=start,
+                                     dn=dn)
+    else:
+        k, v = _expand_kv(c_kv, k_pe, wkv, dn=dn, dtype=x.dtype)
+        out = chunked_attention(torch.cat([q_nope, q_pe], dim=-1), k, v,
+                                causal=True, scale=scale)
+    out = matmul(out.reshape(b, s, h * dv), p["wo"].reshape(h * dv, -1))
+    return out, new_cache
+
+
+def _mla_flash_prefill(q: torch.Tensor, cc: torch.Tensor, cp: torch.Tensor,
+                       wk: torch.Tensor, wv: torch.Tensor, *, scale: float,
+                       q_offset: int, dn: int, chunk_q: int = 1024,
+                       chunk_kv: int = 1024) -> torch.Tensor:
+    """Flash attention over the MLA latent: per-head K/V are expanded from
+    the latent one KV chunk at a time inside the loop, so the (T, H,
+    dn + dv) expansion never exists whole. q: (B, S, H, dn + dr) rope'd
+    queries; cc: (B, T, r); cp: (B, T, dr); wk: (r, H, dn); wv: (r, H,
+    dv). Returns (B, S, H, dv) in cc's dtype."""
+    b, s, h, dq = q.shape
+    t, r = cc.shape[1], cc.shape[2]
+    dr = dq - dn
+    dv = wv.shape[-1]
+    chunk_q = min(chunk_q, s)
+    chunk_kv = min(chunk_kv, t)
+    nq = -(-s // chunk_q)
+    nkv = -(-t // chunk_kv)
+    pad_kv = nkv * chunk_kv - t
+    if pad_kv:
+        cc = torch.nn.functional.pad(cc, (0, 0, 0, pad_kv))
+        cp = torch.nn.functional.pad(cp, (0, 0, 0, pad_kv))
+    kv_pos = torch.arange(nkv * chunk_kv, dtype=torch.float32,
+                          device=q.device)
+    wk2 = wk.reshape(r, h * dn)
+    wv2 = wv.reshape(r, h * dv)
+    outs = []
+    for qi in range(nq):
+        qb = q[:, qi * chunk_q:(qi + 1) * chunk_q]
+        cq = qb.shape[1]
+        qp = float(q_offset) + torch.arange(
+            qi * chunk_q, qi * chunk_q + cq, dtype=torch.float32,
+            device=q.device)
+        m = torch.full((b, h, cq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, cq, dv), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(nkv):
+            sl = slice(ki * chunk_kv, (ki + 1) * chunk_kv)
+            ccb, cpb = cc[:, sl], cp[:, sl]
+            ck = ccb.shape[1]
+            # expand this chunk's K/V from the latent
+            kb = matmul(ccb, wk2).reshape(b, ck, h, dn).to(qb.dtype)
+            vb = matmul(ccb, wv2).reshape(b, ck, h, dv).to(qb.dtype)
+            kfull = torch.cat([kb, cpb[:, :, None, :].expand(
+                b, ck, h, dr).to(qb.dtype)], dim=-1)
+            s_blk = torch.einsum("bqhd,bkhd->bhqk", qb.float(),
+                                 kfull.float()) * scale
+            mask = _mask_block(qp, kv_pos[sl], causal=True, window=0,
+                               t_valid=t)
+            s_blk = torch.where(mask[None, None], s_blk,
+                                torch.full_like(s_blk, NEG_INF))
+            m_new = torch.maximum(m, s_blk.amax(dim=-1))
+            p = torch.exp(s_blk - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(vb.dtype).float(), vb.float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2))
+    return torch.cat(outs, dim=1).to(cc.dtype)

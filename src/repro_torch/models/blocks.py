@@ -1,5 +1,6 @@
-"""Dense decoder block: GQA attention + the dense FFN or the converted CMoE
-FFN. Port of the dense family of ``repro/models/blocks.py``.
+"""Decoder blocks: the dense block (GQA attention + the dense FFN or the
+converted CMoE FFN) and deepseek-v2's block (MLA + the pretrained MoE).
+Port of the dense and mla_moe families of ``repro/models/blocks.py``.
 
 Parameters keep the JAX layout (nested dicts, the same keys), so weights
 cross between the packages unchanged (see ``repro_torch.bridge``).
@@ -10,8 +11,8 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.attention import gqa_attention
-from repro_torch.models.layers import ffn, rms_norm
+from repro_torch.models.attention import gqa_attention, mla_attention
+from repro_torch.models.layers import ffn, lecun, rms_norm
 
 
 class BlockCtx(NamedTuple):
@@ -41,21 +42,14 @@ class BlockCtx(NamedTuple):
     #   effective routed top-k (activation tiers); None = K_max everywhere
 
 
-def _lecun(shape, dtype, device, generator, fan_in=None) -> torch.Tensor:
-    fan_in = fan_in if fan_in is not None else shape[0]
-    w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (w * (1.0 / fan_in) ** 0.5).to(dtype)
-
-
 def init_attn(cfg, dtype, device, generator) -> dict:
     hd = cfg.resolved_head_dim
     d = cfg.d_model
     p = {
-        "wq": _lecun((d, cfg.num_heads, hd), dtype, device, generator, d),
-        "wk": _lecun((d, cfg.num_kv_heads, hd), dtype, device, generator, d),
-        "wv": _lecun((d, cfg.num_kv_heads, hd), dtype, device, generator, d),
-        "wo": _lecun((cfg.num_heads, hd, d), dtype, device, generator,
+        "wq": lecun((d, cfg.num_heads, hd), dtype, device, generator, d),
+        "wk": lecun((d, cfg.num_kv_heads, hd), dtype, device, generator, d),
+        "wv": lecun((d, cfg.num_kv_heads, hd), dtype, device, generator, d),
+        "wo": lecun((cfg.num_heads, hd, d), dtype, device, generator,
                      cfg.num_heads * hd),
     }
     if cfg.qkv_bias:
@@ -65,16 +59,38 @@ def init_attn(cfg, dtype, device, generator) -> dict:
     return p
 
 
+def init_mla(cfg, dtype, device, generator) -> dict:
+    m = cfg.mla
+    d = cfg.d_model
+    h = cfg.num_heads
+    return {
+        "q_dproj": lecun((d, m.q_lora_rank), dtype, device, generator, d),
+        "q_norm": torch.zeros((m.q_lora_rank,), dtype=dtype, device=device),
+        "q_uproj": lecun(
+            (m.q_lora_rank, h, m.qk_nope_head_dim + m.qk_rope_head_dim),
+            dtype, device, generator, m.q_lora_rank),
+        "kv_dproj": lecun((d, m.kv_lora_rank + m.qk_rope_head_dim), dtype,
+                          device, generator, d),
+        "kv_norm": torch.zeros((m.kv_lora_rank,), dtype=dtype,
+                               device=device),
+        "kv_uproj": lecun(
+            (m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim), dtype,
+            device, generator, m.kv_lora_rank),
+        "wo": lecun((h, m.v_head_dim, d), dtype, device, generator,
+                    h * m.v_head_dim),
+    }
+
+
 def init_ffn(cfg, dtype, device, generator, d_ff: Optional[int] = None
              ) -> dict:
     d_ff = d_ff or cfg.d_ff
     d = cfg.d_model
     if cfg.activation in ("swiglu", "geglu"):
-        return {"wg": _lecun((d, d_ff), dtype, device, generator, d),
-                "wu": _lecun((d, d_ff), dtype, device, generator, d),
-                "wd": _lecun((d_ff, d), dtype, device, generator, d_ff)}
-    return {"wi": _lecun((d, d_ff), dtype, device, generator, d),
-            "wd": _lecun((d_ff, d), dtype, device, generator, d_ff)}
+        return {"wg": lecun((d, d_ff), dtype, device, generator, d),
+                "wu": lecun((d, d_ff), dtype, device, generator, d),
+                "wd": lecun((d_ff, d), dtype, device, generator, d_ff)}
+    return {"wi": lecun((d, d_ff), dtype, device, generator, d),
+            "wd": lecun((d_ff, d), dtype, device, generator, d_ff)}
 
 
 def init_cmoe_ffn(cfg, dtype, device, generator) -> dict:
@@ -87,7 +103,7 @@ def init_cmoe_ffn(cfg, dtype, device, generator) -> dict:
     n_r = cm.num_routed
 
     def w(shape, fan_in=None):
-        return _lecun(shape, dtype, device, generator, fan_in)
+        return lecun(shape, dtype, device, generator, fan_in)
 
     if cfg.activation in ("swiglu", "geglu"):
         shared = {"wg": w((d, ms)), "wu": w((d, ms)), "wd": w((ms, d), ms)}
@@ -160,3 +176,57 @@ def dense_block(x: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
     if ctx.capture:
         aux = {**aux, "ffn_in": ffn_in}
     return x + y, new_kv, aux
+
+
+# ------------------------------------------------------------ MLA + MoE
+
+def _apply_moe(ffn_in: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
+    """The pretrained MoE on one device (the reference's mesh-local
+    dispatch is not ported). Hierarchical CMoE (a converted MoE) raises
+    rather than serving the unconverted experts."""
+    if cfg.cmoe is not None:
+        raise NotImplementedError("hierarchical CMoE is not ported yet")
+    from repro_torch.models.moe import moe_ffn
+    return moe_ffn(ffn_in, p["moe"], cfg, use_kernel=ctx.use_kernel,
+                   backend=ctx.backend, phase=ctx.phase,
+                   valid=_token_valid_flat(ctx))
+
+
+def init_mla_moe_block(cfg, dtype, device, generator) -> dict:
+    from repro_torch.models.moe import init_moe_ffn
+    return {"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+            "attn": init_mla(cfg, dtype, device, generator),
+            "norm2": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+            "moe": init_moe_ffn(cfg, dtype, device, generator)}
+
+
+def mla_moe_block(x: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
+    h, new_cache = mla_attention(
+        rms_norm(x, p["norm1"], cfg.norm_eps), p["attn"], cfg,
+        positions=ctx.positions, kv_cache=ctx.cache,
+        cache_pos=ctx.cache_pos, block_table=ctx.block_table,
+        row_slots=ctx.row_slots, use_kernel=ctx.use_kernel)
+    x = x + h
+    ffn_in = rms_norm(x, p["norm2"], cfg.norm_eps)
+    y, aux = _apply_moe(ffn_in, p, cfg, ctx)
+    if ctx.capture:
+        aux = {**aux, "ffn_in": ffn_in}
+    return x + y, new_cache, aux
+
+
+BLOCKS = {
+    "dense": (init_dense_block, dense_block),
+    "mla_moe": (init_mla_moe_block, mla_moe_block),
+}
+
+
+def block_kind(cfg) -> str:
+    """The reference's block families; the port runs "dense" and
+    "mla_moe"."""
+    if cfg.family == "moe":
+        return "mla_moe" if cfg.mla is not None else "moe"
+    if cfg.family in ("ssm", "hybrid"):
+        return "mamba"
+    if cfg.family == "audio":
+        return "encdec"
+    return "dense"

@@ -1,11 +1,15 @@
-"""Model facade for the dense decoder family.
+"""Model facade for the dense decoder family and deepseek-v2 (MLA + the
+pretrained MoE).
 
-Port of the dense paths of ``repro/models/model.py``. Parameters are nested
-dicts of tensors in the JAX layout: block leaves are stacked over layers as
-(L, ...), and the reference's ``lax.scan`` over that stack becomes a Python
-loop over layers. Caches are (k, v) tuples of (L, B, T, KH, hd) tensors, or
-paged pools of (L, nblocks, bs, KH, hd), that ``step`` updates in place.
-Other families (MoE, MLA, SSM, enc-dec, VLM) are not ported yet and raise.
+Port of the dense and mla_moe paths of ``repro/models/model.py``.
+Parameters are nested dicts of tensors in the JAX layout: block leaves are
+stacked over layers as (L, ...), and the reference's ``lax.scan`` over that
+stack becomes a Python loop over layers. Caches are (k, v) tuples of (L, B,
+T, KH, hd) tensors, or paged pools of (L, nblocks, bs, KH, hd), and for MLA
+(latent, rope key) tuples of (L, B, T, r) / (L, B, T, dr), or pools of (L,
+nblocks, bs, r) / (L, nblocks, bs, dr), that ``step`` updates in place.
+Other families (llama4's GQA MoE, hierarchical CMoE, SSM, enc-dec, VLM)
+are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import blocks as B
-from repro_torch.models.blocks import BlockCtx
+from repro_torch.models.blocks import BlockCtx, block_kind
 from repro_torch.models.layers import embed, rms_norm, unembed
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -45,6 +49,28 @@ def tree_stack(trees: list):
     return torch.stack(trees)
 
 
+def _stack_into(stacked, tree, i: int) -> None:
+    """stacked[...][i] = tree leaf by leaf (same nested-dict structure)."""
+    if isinstance(stacked, dict):
+        for k in stacked:
+            _stack_into(stacked[k], tree[k], i)
+    else:
+        stacked[i] = tree
+
+
+def init_stacked(make, n: int):
+    """Stack n draws of ``make()`` (a nested dict of tensors) leaf by leaf
+    into (n, ...) tensors, drawing and copying in one layer at a time: the
+    peak is the stack plus one layer, not two copies of the stack."""
+    first = make()
+    stacked = tree_map(lambda a: a.new_empty((n, *a.shape)), first)
+    _stack_into(stacked, first, 0)
+    del first
+    for i in range(1, n):
+        _stack_into(stacked, make(), i)
+    return stacked
+
+
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
@@ -60,11 +86,14 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, use_kernel: Optional[bool] = None,
                  backend: Optional[str] = None, device=None):
-        if cfg.family != "dense" or cfg.moe is not None or \
-                cfg.mla is not None:
+        self.kind = block_kind(cfg)
+        dense = cfg.family == "dense" and cfg.moe is None and cfg.mla is None
+        mla_moe = self.kind == "mla_moe" and cfg.moe.moe_every == 1
+        if not (dense or mla_moe):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet; the port runs "
-                f"the dense GQA decoder family")
+                f"family {cfg.family!r} (blocks {self.kind!r}) is not ported "
+                f"yet; the port runs the dense GQA decoder family and "
+                f"deepseek-v2's MLA + MoE")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_kernel = (self.device.type == "cuda") if use_kernel is None \
@@ -93,9 +122,9 @@ class Model:
                 (cfg.d_model, cfg.vocab_size), generator=generator,
                 dtype=torch.float32, device=dev) * cfg.d_model ** -0.5
             ).to(dt)
-        params["blocks"] = tree_stack([
-            B.init_dense_block(cfg, dt, dev, generator)
-            for _ in range(cfg.num_layers)])
+        init_block, _ = B.BLOCKS[self.kind]
+        params["blocks"] = init_stacked(
+            lambda: init_block(cfg, dt, dev, generator), cfg.num_layers)
         return params
 
     # ------------------------------------------------------------ stack
@@ -132,13 +161,14 @@ class Model:
                         token_valid=token_valid, block_table=block_tables,
                         row_slots=row_slots, row_k=row_k)
         blocks = params["blocks"]
+        _, block_fn = B.BLOCKS[self.kind]
         taps = []
         dropped = []
         for li in range(cfg.num_layers):
             p = tree_map(lambda a: a[li], blocks)
             cache_l = None if caches is None else \
                 (caches[0][li], caches[1][li])
-            x, _, aux = B.dense_block(x, p, cfg, base._replace(cache=cache_l))
+            x, _, aux = block_fn(x, p, cfg, base._replace(cache=cache_l))
             if capture:
                 taps.append(aux["ffn_in"])
             if "dropped" in aux:
@@ -176,27 +206,30 @@ class Model:
 
     # ------------------------------------------------------------ caches
 
-    def init_cache(self, batch_size: int, max_len: int):
+    def _cache_leaves(self, lead: tuple) -> tuple:
+        """Zero cache leaves (L, *lead, per-token dims): K and V of (KH,
+        hd), or MLA's latent (r,) and rope key (dr,)."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
+        if self.kind == "mla_moe":
+            tails = ((cfg.mla.kv_lora_rank,), (cfg.mla.qk_rope_head_dim,))
+        else:
+            tails = ((cfg.num_kv_heads, cfg.resolved_head_dim),) * 2
         dt = torch_dtype(cfg)
-        return (torch.zeros(shape, dtype=dt, device=self.device),
-                torch.zeros(shape, dtype=dt, device=self.device))
+        return tuple(torch.zeros((cfg.num_layers, *lead, *tail), dtype=dt,
+                                 device=self.device) for tail in tails)
+
+    def init_cache(self, batch_size: int, max_len: int):
+        """Contiguous cache: every leaf (L, batch_size, max_len, ...)."""
+        return self._cache_leaves((batch_size, max_len))
 
     def init_paged_cache(self, num_blocks: int, block_size: int):
-        """Paged KV pool: the per-token layout of ``init_cache`` with the
+        """Paged pool: the per-token layout of ``init_cache`` with the
         (B, max_len) lane axes replaced by a flat pool of fixed-size blocks,
-        every leaf (L, num_blocks, block_size, KH, hd). Lanes address it
+        every leaf (L, num_blocks, block_size, ...). Lanes address it
         through per-slot block tables (``step(block_tables=...)``);
         physical block 0 is the trash block that absorbs dummy and spill
         writes (see ``repro_torch.serving.cache.PagedKVCache``)."""
-        cfg = self.cfg
-        shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        dt = torch_dtype(cfg)
-        return (torch.zeros(shape, dtype=dt, device=self.device),
-                torch.zeros(shape, dtype=dt, device=self.device))
+        return self._cache_leaves((num_blocks, block_size))
 
     def step(self, params, tokens: torch.Tensor, cache, slot_pos, *,
              phase: Optional[str] = None,

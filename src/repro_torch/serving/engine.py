@@ -361,8 +361,10 @@ class _InFlight:
 class ServingEngine:
     """Continuous-batching engine over a slot KV cache.
 
-    model/params: the port's dense GQA family (plain or CMoE-converted). max_slots is the batch width (one slot = one lane of the
-    cache); max_len bounds prompt + generation per request.
+    model/params: the port's dense GQA family (plain or CMoE-converted)
+    or deepseek-v2's MLA + pretrained MoE, whose cache is the (latent,
+    rope key) pair. max_slots is the batch width (one slot = one lane of
+    the cache); max_len bounds prompt + generation per request.
     policy="static" turns the same machinery into the fixed-batch
     baseline (admit only when all slots are free) — used by the goodput
     benchmark so both sides run identical compiled steps.
@@ -411,10 +413,12 @@ class ServingEngine:
         if prefix_reuse and not paged:
             raise ValueError("prefix_reuse needs paged=True — sharing is "
                              "a block-table property")
-        if model.cfg.family != "dense":
+        kind = getattr(model, "kind", None)
+        if kind not in ("dense", "mla_moe"):
             raise NotImplementedError(
-                f"serving engine needs a positional KV cache of the ported "
-                f"dense family; family={model.cfg.family!r} is not ported")
+                f"serving engine needs a positional KV cache of a ported "
+                f"family; family={model.cfg.family!r} kind={kind!r} is not "
+                f"ported")
         self.model = model
         self.params = params
         self.max_slots = max_slots

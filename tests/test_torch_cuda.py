@@ -126,3 +126,106 @@ def test_cuda_paged_attn_matches_plain(dtype, grp, hd, bs, window):
         tol = (1e-4 if dt == torch.float32 else 2e-2) * \
             ref[sl].float().abs().max().item()
         assert (got[sl].float() - ref[sl].float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads,r,dr,bs", [(128, 512, 64, 16), (12, 96, 16, 8),
+                                           (4, 32, 8, 4)])
+def test_cuda_mla_paged_decode_matches_plain(dtype, heads, r, dr, bs):
+    """mla_paged_decode on fragmented tables, with rows sharing a lane, an
+    all-trash padding row, a poisoned trash block and depths that are not
+    a multiple of the block size, against its plain version; one launch
+    counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.paged_attention import mla_paged_decode_plain
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    rows, depth = 6, 45
+    nblk = -(-(depth + 1) // bs)
+    nblocks = rows * nblk + 1
+    cc = torch.randn((nblocks, bs, r), generator=g, device=dev)
+    cp = torch.randn((nblocks, bs, dr), generator=g, device=dev)
+    cc[0], cp[0] = 1e4, -1e4                     # poisoned trash block
+    table = (torch.randperm(nblocks - 1, generator=g, device=dev) + 1)[
+        :rows * nblk].reshape(rows, nblk).to(torch.int32)
+    table[1] = table[0]                          # two rows share a lane
+    table[5] = 0                                 # an all-trash padding row
+    pos = torch.tensor([depth, depth - 5, 30, 17, depth, 0],
+                       dtype=torch.int32, device=dev)
+    qa = torch.randn((rows, heads, r), generator=g, device=dev)
+    qp = torch.randn((rows, heads, dr), generator=g, device=dev)
+    qa, qp, cc, cp = qa.to(dt), qp.to(dt), cc.to(dt), cp.to(dt)
+    scale = (r // 4 + dr) ** -0.5
+    tops.reset_launches()
+    got = tops.mla_paged_decode(qa, qp, cc, cp, table=table, pos=pos,
+                                scale=scale)
+    ref = mla_paged_decode_plain(qa, qp, cc, cp, table, pos, scale=scale)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["mla_paged_decode"] == 1
+    assert got.dtype == dt and torch.isfinite(got).all()
+    for sl in (slice(0, 5), slice(5, 6)):
+        tol = (1e-4 if dt == torch.float32 else 2e-2) * \
+            ref[sl].float().abs().max().item()
+        assert (got[sl].float() - ref[sl].float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_mla_rows_are_width_invariant():
+    """A row's mla_paged_decode output is bitwise the same alone and inside
+    a call of many rows, and through a paged table or the same lane held
+    as a contiguous cache (a pool of one block per lane)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    rows, heads, r, dr, bs, nblk = 9, 128, 512, 64, 16, 5
+    bf = torch.bfloat16
+    cc = torch.randn((1 + rows * nblk, bs, r), generator=g, device=dev).to(bf)
+    cp = torch.randn((1 + rows * nblk, bs, dr), generator=g,
+                     device=dev).to(bf)
+    table = (torch.randperm(rows * nblk, generator=g, device=dev) + 1
+             ).reshape(rows, nblk).to(torch.int32)
+    pos = torch.randint(0, nblk * bs, (rows,), generator=g, device=dev).to(
+        torch.int32)
+    qa = torch.randn((rows, heads, r), generator=g, device=dev).to(bf)
+    qp = torch.randn((rows, heads, dr), generator=g, device=dev).to(bf)
+    whole = tops.mla_paged_decode(qa, qp, cc, cp, table=table, pos=pos,
+                                  scale=0.07)
+    lanes_c = cc[table.long()].reshape(rows, nblk * bs, r)
+    lanes_p = cp[table.long()].reshape(rows, nblk * bs, dr)
+    lane_table = torch.arange(rows, dtype=torch.int32, device=dev)[:, None]
+    for i in (0, 4, rows - 1):
+        one = tops.mla_paged_decode(qa[i:i + 1], qp[i:i + 1], cc, cp,
+                                    table=table[i:i + 1], pos=pos[i:i + 1],
+                                    scale=0.07)
+        assert torch.equal(one, whole[i:i + 1])
+    contiguous = tops.mla_paged_decode(qa, qp, lanes_c, lanes_p,
+                                       table=lane_table, pos=pos, scale=0.07)
+    assert torch.equal(contiguous, whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n", [(1024, 1024), (5120, 1536)])
+def test_cuda_row_matmul_is_width_invariant(dtype, k, n):
+    """A row's product is bitwise the same alone and inside a call of any
+    width, below the probed row count (one call where the probe allows it)
+    and above it (row tiles)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (cuBLAS products)")
+    from repro_torch.models.layers import PROBE_ROWS, matmul
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    dt = getattr(torch, dtype)
+    w = (torch.randn((k, n), generator=g, device=dev) * k ** -0.5).to(dt)
+    x = torch.randn((PROBE_ROWS + 72, k), generator=g, device=dev).to(dt)
+    for width in (1, 3, 64, 65, PROBE_ROWS, PROBE_ROWS + 1, PROBE_ROWS + 72):
+        y = matmul(x[:width], w)
+        for row in {0, width - 1}:
+            assert torch.equal(y[row:row + 1], matmul(x[row:row + 1], w))

@@ -107,5 +107,13 @@ def test_wrappers_route_cpu_tensors_to_plain_without_counting():
                                table=torch.tensor([[1, 2], [2, 1]]),
                                pos=torch.tensor([5, 7]), scale=0.5)
     assert a.shape == (2, 1, 4, 8)
+    cc = torch.from_numpy(_rand(rng, (3, 4, 16)))
+    cp = torch.from_numpy(_rand(rng, (3, 4, 8)))
+    o = tops.mla_paged_decode(torch.from_numpy(_rand(rng, (2, 4, 16))),
+                              torch.from_numpy(_rand(rng, (2, 4, 8))), cc, cp,
+                              table=torch.tensor([[1, 2], [2, 1]]),
+                              pos=torch.tensor([5, 7]), scale=0.5)
+    assert o.shape == (2, 4, 16)
     assert tops.LAUNCHES == {"swiglu_ffn": 0, "moe_gmm_ragged": 0,
-                             "moe_gather": 0, "paged_attn_decode": 0}
+                             "moe_gather": 0, "paged_attn_decode": 0,
+                             "mla_paged_decode": 0}

@@ -200,3 +200,79 @@ def test_cmoe_ffn_matches_jax(phase, use_kernel):
         np.testing.assert_allclose(auxt[key].numpy(), np.asarray(auxj[key]),
                                    **TOL)
     assert int(auxt["dropped"]) == int(auxj["dropped"]) == 0
+
+
+# ------------------------------------------------- pretrained MoE (deepseek)
+
+def _moe_cfgs():
+    from repro.configs import get_smoke_config as j_smoke
+    from repro_torch.config import override as t_override
+    from repro_torch.configs import get_smoke_config as t_smoke
+    return (override(j_smoke("deepseek-v2-236b"), dtype="float32"),
+            t_override(t_smoke("deepseek-v2-236b"), dtype="float32"))
+
+
+def _moe_params(rng, d=64, e=8, m=96, ds=192):
+    return {"router": _rand(rng, (d, e), d ** -0.5),
+            "wg": _rand(rng, (e, d, m), d ** -0.5),
+            "wu": _rand(rng, (e, d, m), d ** -0.5),
+            "wd": _rand(rng, (e, m, d), m ** -0.5),
+            "balance_bias": _rand(rng, (e,), 0.2),
+            "shared_wg": _rand(rng, (d, ds), d ** -0.5),
+            "shared_wu": _rand(rng, (d, ds), d ** -0.5),
+            "shared_wd": _rand(rng, (ds, d), ds ** -0.5)}
+
+
+def test_moe_gate_matches_jax():
+    """Top-k over probs + balance_bias (a bias large enough to change the
+    selection), gates from the true probs renormalised; exact ties in the
+    selection go to the lower index, as jax.lax.top_k breaks them."""
+    from repro.models import moe as jm
+    from repro_torch.models import moe as tm
+    cfg_j, cfg_t = _moe_cfgs()
+    rng = np.random.default_rng(7)
+    p = _moe_params(rng)
+    p["balance_bias"][[2, 5, 7]] = 0.3
+    xf = _rand(rng, (24, 64))
+    xf[5] = 0.0            # uniform probs: experts 2, 5 and 7 tie on top
+    gj, ij, pj = jm.moe_gate(jnp.asarray(xf), _jtree(p), cfg_j.moe)
+    gt, it, pt = tm.moe_gate(_t(xf), _ttree(p), cfg_t.moe)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), **TOL)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), **TOL)
+    unbiased = dict(p, balance_bias=np.zeros(8, np.float32))
+    _, i0, _ = tm.moe_gate(_t(xf), _ttree(unbiased), cfg_t.moe)
+    assert not torch.equal(i0, it)          # the bias changed the choice
+    assert it[5].tolist() == [2, 5]
+
+
+@pytest.mark.parametrize("backend,masked", [("gather", False),
+                                            ("grouped_plain", True),
+                                            ("grouped_kernel", False),
+                                            ("exact", True)])
+def test_moe_ffn_matches_jax(backend, masked):
+    """The pretrained-MoE FFN (routed top-k + 2 shared experts) against the
+    reference on each engine backend, with padded rows masked out: the
+    output, the load per expert and zero dropped pairs."""
+    from repro.models import moe as jm
+    from repro_torch.models import moe as tm
+    cfg_j, cfg_t = _moe_cfgs()
+    rng = np.random.default_rng(8)
+    p = _moe_params(rng)
+    x = _rand(rng, (2, 9, 64))
+    valid = (rng.random((18, 1)) < 0.7) if masked else None
+    jb = {"grouped_plain": "grouped_xla",
+          "grouped_kernel": "grouped_pallas"}.get(backend, backend)
+    kw_j = {} if valid is None else {"valid": jnp.asarray(valid)}
+    kw_t = {} if valid is None else {"valid": _t(valid)}
+    oj, auxj = jm.moe_ffn(jnp.asarray(x), _jtree(p), cfg_j, backend=jb,
+                          use_kernel=jb in ("grouped_pallas", "gather"),
+                          **kw_j)
+    ot, auxt = tm.moe_ffn(_t(x), _ttree(p), cfg_t, backend=backend,
+                          use_kernel=backend in ("grouped_kernel", "gather"),
+                          **kw_t)
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), **TOL)
+    for key in ("load", "router_probs_mean"):
+        np.testing.assert_allclose(auxt[key].numpy(), np.asarray(auxj[key]),
+                                   **TOL)
+    assert int(auxt["dropped"]) == int(auxj["dropped"]) == 0

@@ -246,3 +246,116 @@ def test_engine_matches_jax(monkeypatch):
             rep_j_log] == [row[:5] for row in engine_t.backend_log]
     assert rep_t.dropped_pairs == 0 and rep_t.pool_audit["ok"]
 
+
+
+# ------------------------------------------- deepseek-v2 (MLA + MoE) engine
+
+@pytest.fixture(scope="module")
+def deepseek():
+    """The deepseek-v2 smoke model (MLA, 8 experts top-2 with 2 shared) on
+    the CPU from a seeded torch init, kernel routes on (their plain
+    versions run on CPU tensors)."""
+    cfg = override(get_smoke_config("deepseek-v2-236b"), dtype="float32")
+    model = build_model(cfg, use_kernel=True, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    return model, params
+
+
+DS_CASES = {
+    "overlap==sequential": (dict(max_prefill_tokens=6, overlap=True),
+                            dict(max_prefill_tokens=6)),
+    "paged==contiguous": (dict(PAGED, max_prefill_tokens=6, overlap=True),
+                          dict()),
+    "chunked==unchunked": (dict(max_prefill_tokens=4), dict()),
+    "reuse==no_reuse": (dict(PAGED, prefix_reuse=True, overlap=True),
+                        dict(PAGED)),
+}
+
+
+@pytest.mark.parametrize("case", list(DS_CASES))
+def test_deepseek_engine_parity(deepseek, case):
+    """The engine's parity gates on the latent cache: identical streams,
+    zero dropped pairs and a clean pool audit (checked in _run)."""
+    model, params = deepseek
+    kw, base_kw = DS_CASES[case]
+    reqs = _mix(model.cfg.vocab_size, seed=2,
+                prefix_groups=[14] if case == "reuse==no_reuse" else None)
+    base, _ = _run(model, params, reqs, **base_kw)
+    got, rep = _run(model, params, reqs, **kw)
+    assert got == base
+    if case == "reuse==no_reuse":
+        assert rep.prefix_hits >= 1 and rep.reused_blocks >= 3
+
+
+def test_deepseek_engine_matches_static_greedy_loop(deepseek):
+    """Staggered requests through 2 recycled slots reproduce, token for
+    token, each prompt's static loop: one prefill at a scalar position
+    (the flash-style latent prefill) and absorbed decode steps."""
+    model, params = deepseek
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, prompt=rng.integers(0, model.cfg.vocab_size,
+                                               6 + 2 * i).tolist(),
+                    max_new=4, arrival=float(i)) for i in range(3)]
+    got, rep = _run(model, params, reqs, max_slots=2, max_len=24)
+    assert rep.slot_reuse >= 1
+    for r in reqs:
+        logits, cache = model.prefill(
+            params, {"tokens": torch.tensor([r.prompt])}, max_len=24)
+        toks = [int(torch.argmax(logits, -1))]
+        for i in range(r.max_new - 1):
+            logits, cache = model.decode_step(
+                params, torch.tensor([[toks[-1]]]), cache,
+                len(r.prompt) + i)
+            toks.append(int(torch.argmax(logits, -1)))
+        assert got[r.rid] == tuple(toks)
+
+
+def test_deepseek_cli_static_and_engine(deepseek):
+    """Both entry points of the CLI on the deepseek-v2 smoke config: the
+    static path on its MoE backends, and the CLI's engine mode
+    (serve_continuous: paged, overlapped, with its parity replays) on the
+    smoke model built here, since the CLI's --smoke --continuous default
+    asks for a conversion."""
+    res = tserve.run(["--smoke", "--arch", "deepseek-v2-236b", "--device",
+                      "cpu", "--batch", "2", "--gen", "3"])
+    assert np.asarray(res["tokens"]).shape == (2, 3)
+    assert res["backends"] == {"prefill": "grouped_plain",
+                               "decode": "gather"}
+    model, params = deepseek
+    args = tserve.parser().parse_args(
+        ["--continuous", "--paged", "--parity", "--requests", "5", "--gen",
+         "4", "--prompt-len", "12", "--max-prefill-tokens", "8",
+         "--block-size", "8"])
+    res = tserve.serve_continuous(model, params, args)
+    assert res["parity"] == ["overlap == sequential", "paged == contiguous"]
+    assert res["report"].dropped_pairs == 0
+    assert res["report"].pool_audit["ok"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "deepseek-v2-236b", "--smoke", "--cmoe", "S2A2E8"],
+    ["--arch", "deepseek-v2-236b", "--smoke", "--continuous"]])
+def test_cli_refuses_hierarchical_cmoe(argv):
+    """Hierarchical conversion (--cmoe on an MoE arch, the smoke engine's
+    implicit S2A2E8 included) is not ported and raises; it never serves
+    the unconverted experts under a conversion tag."""
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tserve.run(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "mamba2-370m", "whisper-small"])
+def test_unported_archs_still_raise(arch):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tserve.run(["--arch", arch, "--smoke", "--device", "cpu"])
+
+
+def test_converted_moe_block_raises():
+    """A config that carries both an MoE and a CMoE spec (hierarchical)
+    is refused by the block, not served as the plain MoE."""
+    cfg = override(get_smoke_config("deepseek-v2-236b"), dtype="float32")
+    model = build_model(cfg.with_cmoe(CMoEConfig(**CM)), device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        model.prefill(params, {"tokens": torch.zeros((1, 4),
+                                                     dtype=torch.long)})

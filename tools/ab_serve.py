@@ -1,0 +1,72 @@
+"""Compare the qwen1.5-0.5b serving paths of two (or more) checkouts of this
+repository on one GPU, in one call, so that the card and its power limit
+are the same for each.
+
+Each ROOT is a checkout (its ``src/`` holds ``repro_torch``); each is run in
+a process of its own, in the order given, so that ``parent change change
+parent`` balances drift over the call. A process serves qwen1.5-0.5b at
+full width, converted to CMoE S3A3E8, through ``repro_torch.launch.serve``:
+the static mode (4 x 32 prefill, 16 generated) and the paged overlapped
+engine (8 requests, as ``chip_smoke.py`` phase 4 runs it, without its
+parity replays). It prints one JSON line per root with conversion seconds,
+prefill ms, decode tok/s, and the engine's wall, goodput, TTFT and TPOT.
+
+    python3 tools/ab_serve.py build/parent . . build/parent
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+STATIC = ["--arch", "qwen1.5-0.5b", "--cmoe", "S3A3E8", "--batch", "4",
+          "--prompt-len", "32", "--gen", "16", "--seed", "0"]
+ENGINE = ["--arch", "qwen1.5-0.5b", "--cmoe", "S3A3E8", "--continuous",
+          "--paged", "--batch", "4", "--requests", "8", "--rate", "0.5",
+          "--prompt-len", "64", "--gen", "16", "--max-prefill-tokens", "32",
+          "--block-size", "16", "--seed", "0"]
+
+CHILD = r"""
+import contextlib, io, json, sys
+from repro_torch.launch import serve
+static, engine = json.loads(sys.argv[1])
+with contextlib.redirect_stdout(io.StringIO()):
+    s = serve.run(static)
+    e = serve.run(engine)
+rep = e["report"]
+print(json.dumps({
+    "convert_s": s["convert_s"], "prefill_ms": s["prefill_ms"],
+    "decode_tok_s": s["decode_tok_s"],
+    "engine_convert_s": e["convert_s"], "engine_wall_s": rep.wall_s,
+    "goodput_tok_s": rep.goodput,
+    "ttft_p50_ms": rep.ttft_p50_s * 1e3, "ttft_p95_ms": rep.ttft_p95_s * 1e3,
+    "tpot_p50_ms": rep.tpot_p50_s * 1e3, "tpot_p95_ms": rep.tpot_p95_s * 1e3,
+    "dropped_pairs": rep.dropped_pairs}))
+"""
+
+
+def main(roots) -> int:
+    if not roots:
+        print(__doc__.strip().splitlines()[-1].strip(), file=sys.stderr)
+        return 2
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(out)
+    for root in roots:
+        src = os.path.join(os.path.abspath(root), "src")
+        env = dict(os.environ, PYTHONPATH=src)
+        res = subprocess.run([sys.executable, "-c", CHILD,
+                              json.dumps([STATIC, ENGINE])], env=env,
+                             capture_output=True, text=True)
+        if res.returncode:
+            sys.stderr.write(res.stderr[-4000:])
+            raise SystemExit(f"{root}: exit code {res.returncode}")
+        row = json.loads(res.stdout.strip().splitlines()[-1])
+        print(json.dumps({"root": root, **row}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
