@@ -6,7 +6,7 @@
 
 Phases (any failure raises and exits nonzero; no phase catches its own):
   1. device and build: the card's name and power limit (nvidia-smi), then
-     the five CUDA kernels built from ``src/repro_torch/kernels/csrc`` with
+     the six CUDA kernels built from ``src/repro_torch/kernels/csrc`` with
      nvcc, one process per source, all started together;
   2. each kernel against its plain PyTorch version on the card at the shapes
      of its path, in float32 (|err| <= 1e-4 max|ref|) and bfloat16 (|err|
@@ -43,12 +43,27 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      (prefill 4 x 32, 16 generated); (c) bfloat16, 4 layers, the engine
      through the CLI's entry point (the phase 4 arguments without
      conversion: overlapped + paged, with parity replays), launch counts
-     zeroed before (b) and before (c) and read after each.
+     zeroed before (b) and before (c) and read after each;
+  6. the SSM family at full published width and depth: (a) float32, for
+     mamba2-370m and zamba2-1.2b, the kernel path against the plain path
+     on one set of weights: Model.forward on 2 x 1024 tokens, then a 4 x 32
+     prefill from a fresh cache and 4 decode steps (logits within 1e-3
+     max|logit| everywhere, greedy tokens compared); (b) mamba2-370m and
+     (c) zamba2-1.2b in bfloat16 through the CLI's static entry point
+     (prefill 4 x 32, 16 generated), launch counts zeroed before each and
+     read after: ssd_scan once per layer per prefill, and zamba2's shared
+     block's swiglu_ffn once per application per prefill and decode step.
+Phase 2 also holds ssd_scan against its plain version (float32, and bf16
+inputs, |err| <= 1e-4 max|ref|: the arithmetic is float32 in both) at
+mamba2's prefill shape from a zero and a random state, a length that is
+not a multiple of the kernel's chunk, a long forward (2 x 2048) and
+zamba2's widths, and times it at the prefill shape.
 Prints the kernels JSON line, then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -95,6 +110,15 @@ DS_ENGINE_ARGS = ["--arch", DS_ARCH, "--layers", str(DS_LAYERS)] + \
 MLA_MAIN = dict(rows=4, heads=128, r=512, dr=64, bs=16, depth=80)
 MLA_LONG = dict(rows=32, heads=128, r=512, dr=64, bs=16, depth=2048)
 MLA_SCALE = (128 + 64) ** -0.5
+
+# the SSM family (phase 6): full published width and depth, one card
+SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
+SSM_FWD = (2, 1024)        # Model.forward batch x tokens (phase 6a)
+# ssd_scan at mamba2-370m's static prefill (4 x 32, 32 heads of 64, state
+# 128), and at a long forward and zamba2-1.2b's widths (64 heads, state 64)
+SSD_MAIN = dict(b=BATCH, s=PROMPT, nh=32, hp=64, n=128)
+SSD_LONG = dict(b=2, s=2048, nh=32, hp=64, n=128)
+SSD_ZAMBA = dict(b=BATCH, s=PROMPT, nh=64, hp=64, n=64)
 
 
 def nvidia_smi() -> str:
@@ -284,6 +308,7 @@ def kernel_phase() -> dict:
               f"distinct experts~{distinct:.2f}")
     records["paged_attn_decode"] = paged_attn_phase(g, dev)
     records["mla_paged_decode"] = mla_phase(g, dev)
+    records["ssd_scan"] = ssd_phase(g, dev)
     deepseek_expert_times(g, dev, records)
     for r in records.values():
         lib = "null" if r["library_ms"] is None else \
@@ -510,6 +535,110 @@ def mla_phase(g, dev) -> dict:
                                          MLA_LONG.items()),
                           ms=lms, plain_ms=lplain_ms, bound_ms=lb_ms,
                           bound_by=lb_by))
+
+
+def ssd_case(g, dev, dtype, *, b, s, nh, hp, n, state=True):
+    """ssd_scan operands as mamba2_block hands them: xh, B and C are views
+    of one conv output (batch and sequence strides over di + 2N channels),
+    dt post-softplus in float32, h0 random or None."""
+    import torch
+    di = nh * hp
+    conv = torch.randn((b, s, di + 2 * n), generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, nh), generator=g, device=dev) - 1.0)
+    a_log = 0.3 * torch.randn((nh,), generator=g, device=dev)
+    d_skip = torch.randn((nh,), generator=g, device=dev)
+    h0 = torch.randn((b, nh, hp, n), generator=g, device=dev) \
+        if state else None
+    return [conv[..., :di].reshape(b, s, nh, hp), dt, conv[..., di:di + n],
+            conv[..., di + n:], a_log, d_skip, h0]
+
+
+def ssd_work(b, s, nh, hp, n, itemsize, state=True) -> tuple[float, float]:
+    """(FLOPs, bytes) of one ssd_scan call. FLOPs of the chunked algorithm
+    at the kernel's chunk, only the causal entries: per chunk of L rows,
+    C B^T once per batch (L(L+1)/2 x 2N), and per head the intra-chunk
+    product (L(L+1)/2 x 2hp), C h^T and the state update (2 L hp N each).
+    Bytes: each input read once (B and C per batch, not per head), each
+    output written once."""
+    from repro_torch.kernels.ssd_scan import KERNEL_CHUNK
+    flops = 0.0
+    for c0 in range(0, s, KERNEL_CHUNK):
+        L = min(KERNEL_CHUNK, s - c0)
+        tri = L * (L + 1) / 2
+        flops += b * tri * 2 * n + b * nh * (tri * 2 * hp + 4 * L * hp * n)
+    state_bytes = b * nh * hp * n * 4
+    nbytes = (b * s * nh * hp * itemsize + b * s * nh * 4          # x, dt
+              + 2 * b * s * n * itemsize + 2 * nh * 4              # B, C, A, D
+              + (state_bytes if state else 0)                      # h0
+              + b * s * nh * hp * 4 + state_bytes)                 # y, h_fin
+    return flops, nbytes
+
+
+def ssd_phase(g, dev) -> dict:
+    """ssd_scan against its plain version (the config's chunk of 256),
+    then timed at mamba2-370m's prefill shape in the main path's types
+    (bf16 x, B, C; a float32 zero state from the fresh cache), and at a
+    long forward and zamba2-1.2b's widths."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+
+    err = 0.0
+    cases = [("mamba2 prefill, zero h0", torch.float32,
+              dict(SSD_MAIN, state=False)),
+             ("mamba2 prefill, random h0", torch.float32, SSD_MAIN),
+             ("mamba2 prefill, random h0, bf16 inputs", torch.bfloat16,
+              SSD_MAIN),
+             ("ragged length 100", torch.float32,
+              dict(b=3, s=100, nh=8, hp=64, n=128)),
+             ("long forward 2 x 2048", torch.float32,
+              dict(SSD_LONG, state=False)),
+             ("zamba2 widths", torch.float32, SSD_ZAMBA)]
+    for tag, dt, shape in cases:
+        args = ssd_case(g, dev, dt, **shape)
+        y, h = ops.ssd_scan(*args[:6], chunk=256, h0=args[6])
+        y_ref, h_ref = ssd_scan_plain(*args[:6], 256, h0=args[6])
+        # fp32 arithmetic on the same values in both: the fp32 tolerance
+        err = max(err, check(f"ssd_scan {tag} y", y, y_ref, torch.float32),
+                  check(f"ssd_scan {tag} h_fin", h, h_ref, torch.float32))
+
+    def timed(shape):
+        """Kernel and plain ms at `shape`, bf16 inputs and a float32 zero
+        state (the prefill from a fresh cache), and the bound."""
+        def one_set():
+            args = ssd_case(g, dev, torch.bfloat16, **shape)
+            args[6].zero_()
+            return args
+
+        flops, nbytes = ssd_work(**shape, itemsize=2)
+        sets = [one_set() for _ in range(n_sets(nbytes))]
+        ms = time_ms(lambda *a: ops.ssd_scan(*a[:6], chunk=256, h0=a[6]),
+                     sets)
+        plain_ms = time_ms(lambda *a: ssd_scan_plain(*a[:6], 256, h0=a[6]),
+                           sets)
+        return ms, plain_ms, bound(flops, nbytes, "float32")
+
+    ms, plain_ms, (b_ms, b_by) = timed(SSD_MAIN)
+    extra = {}
+    for tag, shape in (("long", SSD_LONG), ("zamba2", SSD_ZAMBA)):
+        xms, xplain, (xb, xby) = timed(shape)
+        print(f"[time] ssd_scan {tag} {shape}: {xms:.4f} ms (bound "
+              f"{xb:.4f} ms, {xby}), plain {xplain:.4f} ms")
+        extra[tag] = dict(shape=" ".join(f"{k}={v}" for k, v in
+                                         shape.items()),
+                          ms=xms, plain_ms=xplain, bound_ms=xb, bound_by=xby)
+    return dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:61", launches=None,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        library_note="no single PyTorch call computes an SSD chunk scan",
+        dtype="bfloat16 x/B/C, float32 dt/state/y",
+        shape=" ".join(f"{k}={v}" for k, v in SSD_MAIN.items()),
+        long_context=extra["long"], zamba2=extra["zamba2"])
 
 
 def deepseek_expert_times(g, dev, records: dict) -> None:
@@ -752,9 +881,11 @@ def width_invariance() -> None:
           f"for {verdicts[True]}; row tiles for {verdicts[False]}")
 
 
-def engine_phase() -> tuple[dict, list]:
+def engine_phase() -> dict:
     """Phase 4b: the continuous-batching engine through the CLI's entry
-    point, launch counts zeroed before both runs and read after them."""
+    point, launch counts zeroed before both runs and read after them.
+    Returns the launch counts (the engines, and the models they hold, are
+    freed on return)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -794,7 +925,7 @@ def engine_phase() -> tuple[dict, list]:
               f"{rep.prefix_hits}, backends {bc}, audit {rep.pool_audit}, "
               f"parity {res['parity']}")
     print(f"[e2e engine] launches over both runs {launches}")
-    return launches, results
+    return launches
 
 
 def deepseek_f32_agreement() -> None:
@@ -937,6 +1068,137 @@ def deepseek_serving() -> dict:
     return launches
 
 
+def free_device(what: str) -> None:
+    """Release what earlier phases left (the serving engines hold
+    reference cycles, so their models stay on the card until a collection
+    runs) and print what is still allocated before `what`."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[memory] {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated "
+          f"before {what}")
+
+
+def ssm_f32_agreement(arch: str) -> None:
+    """Phase 6a for one arch: full published width and depth in float32,
+    the kernel path (ssd_scan; zamba2's shared block also swiglu_ffn)
+    against the plain path on one set of weights. Model.forward on
+    SSM_FWD tokens (several chunks, so the carried state is exercised),
+    then a 4 x 32 prefill from a fresh cache and 4 decode steps; both
+    paths are fed the kernel path's greedy tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import override
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    free_device(f"{arch} f32")
+    cfg = override(get_config(arch), dtype="float32")
+    k_model = build_model(cfg, use_kernel=True, device=dev)
+    p_model = build_model(cfg, use_kernel=False, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = k_model.init(gen)
+    torch.cuda.synchronize()
+    print(f"[e2e {arch} f32] {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, float32: init {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, SSM_FWD),
+                           dtype=torch.long, device=dev)
+
+    def held(what, lk, lp):
+        err = (lk - lp).abs().max().item()
+        scale = lp.abs().max().item()
+        if not (torch.isfinite(lk).all() and err <= 1e-3 * scale):
+            raise AssertionError(f"{arch} f32 {what}: kernel path disagrees "
+                                 f"with the plain path ({err:.3e} > 1e-3 x "
+                                 f"{scale:.3e})")
+        return err / scale, int((lk.argmax(-1) == lp.argmax(-1)).sum())
+
+    with torch.no_grad():
+        lk = k_model.forward(params, {"tokens": toks})
+        lp = p_model.forward(params, {"tokens": toks})
+        fwd_err, fwd_agree = held("forward", lk, lp)
+        del lk, lp
+        prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                               (BATCH, PROMPT)),
+                                  dtype=torch.long, device=dev)
+        steps = 4
+        feed, logits = [prompts], {}
+        for tag, m in (("kernel", k_model), ("plain", p_model)):
+            lg, cache = m.prefill(params, {"tokens": prompts},
+                                  max_len=PROMPT + steps)
+            out = [lg.float()]
+            for i in range(steps):
+                if tag == "kernel":
+                    feed.append(torch.argmax(out[-1], -1)[:, None])
+                lg, cache = m.decode_step(params, feed[i + 1], cache,
+                                          PROMPT + i)
+                out.append(lg.float())
+            logits[tag] = out
+            del cache
+    worst, agree = 0.0, 0
+    for i, (lk, lp) in enumerate(zip(logits["kernel"], logits["plain"])):
+        e, a = held("prefill" if i == 0 else f"decode step {i}", lk, lp)
+        worst, agree = max(worst, e), agree + a
+    print(f"[e2e {arch} f32] kernel vs plain: forward {SSM_FWD[0]}x"
+          f"{SSM_FWD[1]} max|err| / max|logit| {fwd_err:.3e}, argmax agrees "
+          f"{fwd_agree}/{SSM_FWD[0] * SSM_FWD[1]}; prefill {BATCH}x{PROMPT} "
+          f"+ {steps} decode steps {worst:.3e} (tol 1e-3), greedy tokens "
+          f"agree {agree}/{BATCH * (steps + 1)}")
+
+
+def ssm_serving(arch: str) -> dict:
+    """Phases 6b / 6c: `arch` in bfloat16 at full width and depth through
+    the CLI's static entry point, launch counts zeroed before and read
+    after. ssd_scan runs once per layer per prefill (the warm-up and
+    PREFILL_REPEATS timed ones; decode steps take the recurrent form), and
+    zamba2's shared block swiglu_ffn once per application per prefill and
+    decode step. Returns the launch counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import hybrid_attn_layers
+
+    cfg = get_config(arch)
+    prefills = 1 + serve.PREFILL_REPEATS
+    want = {"ssd_scan": cfg.num_layers * prefills}
+    if cfg.family == "hybrid":
+        apps = hybrid_attn_layers(cfg)[2]
+        want["swiglu_ffn"] = apps * (prefills + GEN)   # warm-up + GEN - 1
+    free_device(f"{arch} bf16")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = serve.run(["--arch", arch, "--batch", str(BATCH), "--prompt-len",
+                     str(PROMPT), "--gen", str(GEN), "--seed", "0"])
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    toks = torch.as_tensor(res["tokens"])
+    if toks.shape != (BATCH, GEN) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab_size or \
+            not torch.isfinite(res["prefill_logits"]).all():
+        raise AssertionError(f"bad {arch} serve output: tokens "
+                             f"{tuple(toks.shape)}")
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{arch} static path launches {got}, reckoned "
+                             f"{want}")
+    print(f"[e2e {arch} bf16] static: prefill {res['prefill_ms']:.2f} ms "
+          f"({BATCH}x{PROMPT}, median of {serve.PREFILL_REPEATS} warm), "
+          f"decode {res['decode_tok_s']:.1f} tok/s ({BATCH} lanes, "
+          f"{GEN - 1} steps), peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+          f"{launches} (reckoned {want})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1014,7 +1276,7 @@ def main(argv=None) -> int:
 
     # phase 4: the continuous-batching engine, paged, overlapped
     width_invariance()
-    launches, _ = engine_phase()
+    launches = engine_phase()
     for name in ("swiglu_ffn", "moe_gmm_ragged", "moe_gather",
                  "paged_attn_decode"):
         if launches[name] <= 0:
@@ -1028,6 +1290,15 @@ def main(argv=None) -> int:
     records["mla_paged_decode"]["launches"] = launches["mla_paged_decode"]
     for name in ("moe_gmm_ragged", "moe_gather"):
         records[name]["launches_deepseek_engine"] = launches[name]
+
+    # phase 6: mamba2-370m and zamba2-1.2b at full width and depth
+    for arch in SSM_ARCHS:
+        ssm_f32_agreement(arch)
+    launches = ssm_serving("mamba2-370m")
+    records["ssd_scan"]["launches"] = launches["ssd_scan"]
+    launches = ssm_serving("zamba2-1.2b")
+    records["ssd_scan"]["launches_zamba2"] = launches["ssd_scan"]
+    records["swiglu_ffn"]["launches_zamba2"] = launches["swiglu_ffn"]
 
     print(smi)
     print(json.dumps({"kernels": list(records.values())}))

@@ -1,8 +1,9 @@
 """Architecture registry. Each module exposes config() and smoke_config().
 
 The port lists every arch of the JAX package, but only the dense GQA
-SwiGLU family and deepseek-v2's MLA + pretrained MoE run here so far; the
-others raise until their slice lands.
+SwiGLU family, deepseek-v2's MLA + pretrained MoE, and the Mamba2 SSM and
+zamba2 hybrid families run here so far; the others raise until their slice
+lands.
 """
 from __future__ import annotations
 
@@ -17,13 +18,15 @@ ARCHS = {
     "llama2-7b": "llama2_7b",
     # multi-head latent attention + the pretrained top-6-of-160 MoE
     "deepseek-v2-236b": "deepseek_v2_236b",
+    # attention-free Mamba2 (SSD) and the Mamba2 + shared-attention hybrid
+    "mamba2-370m": "mamba2_370m",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 # archs of the JAX package whose families the port does not run yet
 NOT_PORTED = (
     "llama4-maverick-400b-a17b", "granite-34b",
-    "gemma3-4b", "phi3-medium-14b", "whisper-small", "zamba2-1.2b",
-    "mamba2-370m", "internvl2-26b",
+    "gemma3-4b", "phi3-medium-14b", "whisper-small", "internvl2-26b",
 )
 
 

@@ -31,10 +31,24 @@ class ConversionReport:
     calib_tokens: int
 
 
+def check_convertible(cfg) -> None:
+    """Raise unless CMoE conversion applies to cfg's family. As in the
+    reference, it applies to decoders with a dense gated FFN: the Mamba2
+    SSD mixer has no gated neuron basis to split, and the reference
+    refuses the ssm and hybrid families alike."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(
+            f"CMoE conversion does not apply to the {cfg.family!r} family "
+            f"({cfg.name}): the Mamba2 SSD mixer has no gated FFN neuron "
+            f"basis to split, and the reference converts dense-FFN "
+            f"decoders only")
+
+
 def convert_dense_model(model: Model, params: dict, calib_batch: dict,
                         cm: CMoEConfig):
     """Convert every FFN layer. Returns (cmoe_model, cmoe_params, report)."""
     cfg = model.cfg
+    check_convertible(cfg)
     if cfg.family != "dense":
         raise NotImplementedError(f"conversion of family {cfg.family!r} is "
                                   f"not ported yet")

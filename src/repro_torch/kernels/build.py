@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("swiglu", "moe_gmm", "moe_gather", "paged_attn", "mla_paged")
+SOURCES = ("swiglu", "moe_gmm", "moe_gather", "paged_attn", "mla_paged",
+           "ssd_scan")
 HEADERS = ("ffn_core.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -29,8 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: every pointer and the stream as c_void_p, sizes as c_int,
-# the attention scale as c_float
+# the attention scale as c_float, element strides as c_longlong
 SIGNATURES = {
     "swiglu": ("swiglu_ffn_launch", [_P] * 6 + [_I] * 5 + [_P]),
     "moe_gmm": ("moe_gmm_ragged_launch", [_P] * 7 + [_I] * 7 + [_P]),
@@ -39,6 +41,7 @@ SIGNATURES = {
                    [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
     "mla_paged": ("mla_paged_decode_launch",
                   [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
+    "ssd_scan": ("ssd_scan_launch", [_P] * 9 + [_I] * 5 + [_L] * 8 + [_I, _P]),
 }
 
 _lock = threading.Lock()

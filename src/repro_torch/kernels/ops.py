@@ -1,8 +1,8 @@
 """Wrappers around the port's kernels: device routing and launch counts.
 
 Port of ``repro/kernels/ops.py`` for the kernels on the convert-and-serve
-path and the serving engine. Each wrapper routes by the device of its
-operands:
+path, the serving engine and the Mamba2 SSD scan. Each wrapper routes by
+the device of its operands:
 
   * a CPU tensor runs the kernel's plain PyTorch version;
   * a CUDA tensor launches the hand-written CUDA kernel, or raises.
@@ -15,6 +15,8 @@ a run can show which kernels its main path went through.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.moe_gather import moe_gather_cuda, moe_gather_plain
@@ -24,10 +26,11 @@ from repro_torch.kernels.paged_attention import (mla_paged_decode_cuda,
                                                  mla_paged_decode_plain,
                                                  paged_attn_decode_cuda,
                                                  paged_attn_decode_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 from repro_torch.kernels.swiglu import swiglu_ffn_cuda, swiglu_ffn_plain
 
 KERNELS = ("swiglu_ffn", "moe_gmm_ragged", "moe_gather", "paged_attn_decode",
-           "mla_paged_decode")
+           "mla_paged_decode", "ssd_scan")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 # Row tile of the ragged expert layout ``moe_gmm_ragged`` consumes: one
@@ -155,4 +158,24 @@ def mla_paged_decode(q_abs: torch.Tensor, q_pe: torch.Tensor,
         pos.to(device=dev, dtype=torch.int32).reshape(-1).contiguous(),
         scale=scale)
     LAUNCHES["mla_paged_decode"] += 1
+    return out
+
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, a_log: torch.Tensor, d_skip: torch.Tensor, *,
+             chunk: int = 128, h0: Optional[torch.Tensor] = None):
+    """Drop-in for ``repro_torch.models.ssm.ssd_chunked`` (same signature
+    and returns). xh: (B, S, nh, hp); dt: (B, S, nh) post-softplus; b/c:
+    (B, S, N); h0: (B, nh, hp, N) or None (zeros). Returns y (B, S, nh,
+    hp) and h_fin (B, nh, hp, N), float32.
+
+    Unlike the JAX wrapper, which hands every call with a state to the
+    plain scan, the CUDA kernel takes ``h0``, so a prefill from a fresh
+    cache runs it. The plain version scans in chunks of ``chunk`` rows;
+    the CUDA kernel in chunks of its own (``ssd_scan.KERNEL_CHUNK``), the
+    same function up to rounding."""
+    if not _route(xh):
+        return ssd_scan_plain(xh, dt, b, c, a_log, d_skip, chunk, h0=h0)
+    out = ssd_scan_cuda(xh, dt, b, c, a_log, d_skip, h0=h0)
+    LAUNCHES["ssd_scan"] += 1
     return out

@@ -1,6 +1,7 @@
 """Serving CLI: build a model from a seed (a dense decoder, optionally
-converted to CMoE on a synthetic calibration batch, or deepseek-v2's MLA +
-pretrained MoE as it stands), then serve. Port of ``repro/launch/serve.py``.
+converted to CMoE on a synthetic calibration batch, deepseek-v2's MLA +
+pretrained MoE as it stands, or a Mamba2 / zamba2 model), then serve. Port
+of ``repro/launch/serve.py``.
 
 Static mode (default): one prefill and a greedy (or temperature) decode
 loop. ``--continuous``: the continuous-batching engine
@@ -16,9 +17,14 @@ to on exactly on CUDA; ``--no-use-kernel`` runs the plain PyTorch path.
 ``--layers N`` cuts the depth (widths stay as published) so that a large
 arch fits one card. ``--cmoe`` on an MoE arch (hierarchical conversion) is
 not ported yet and raises, the ``--smoke --continuous`` default included.
+The SSM and hybrid archs (mamba2-370m, zamba2-1.2b) serve statically only,
+as in the reference: ``--cmoe`` (conversion does not apply to them) and
+``--continuous`` (the engine needs a positional KV cache) are refused.
 
     python -m repro_torch.launch.serve --cmoe S3A3E8
     python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 4
+    python -m repro_torch.launch.serve --arch mamba2-370m
+    python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
     python -m repro_torch.launch.serve --smoke --cmoe S3A3E8 --device cpu
     python -m repro_torch.launch.serve --smoke --continuous --paged \
         --parity --device cpu
@@ -39,13 +45,15 @@ import torch
 
 from repro_torch.config import CMoEConfig, override
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.convert import convert_dense_model
+from repro_torch.core.convert import check_convertible, convert_dense_model
 from repro_torch.core.experts import BACKENDS, microbatch_backend
 from repro_torch.data import make_calibration_batch
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import build_model
+from repro_torch.models.blocks import block_kind
 from repro_torch.models.model import tree_map
 from repro_torch.serving import ServingEngine, make_requests, make_sampler
+from repro_torch.serving.engine import check_servable
 
 # timed prefills after the warm-up one; prefill_ms is their median
 PREFILL_REPEATS = 5
@@ -154,6 +162,13 @@ def run(argv=None) -> dict:
         raise NotImplementedError(
             "--capacity-factor feeds the sharded dispatch policy "
             "(repro.distributed.policy), which is not ported yet")
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    # the reference's refusals of the SSM and hybrid families, before
+    # anything is built (and before the smoke engine's implicit --cmoe)
+    if args.continuous:
+        check_servable(cfg, block_kind(cfg))
+    if args.cmoe:
+        check_convertible(cfg)
     if args.continuous and args.smoke and not args.cmoe:
         # exercise the per-micro-batch backend policy: without routed
         # experts there is nothing for the phase split to select
@@ -167,7 +182,6 @@ def run(argv=None) -> dict:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
     backend = None if args.backend in (None, "auto", "all") else args.backend
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = override(cfg, dtype="float32") if args.smoke else cfg
     if args.cmoe and cfg.moe is not None:
         # refused before the model is built: a full-depth MoE arch does not

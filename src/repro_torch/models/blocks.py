@@ -1,6 +1,7 @@
 """Decoder blocks: the dense block (GQA attention + the dense FFN or the
-converted CMoE FFN) and deepseek-v2's block (MLA + the pretrained MoE).
-Port of the dense and mla_moe families of ``repro/models/blocks.py``.
+converted CMoE FFN), deepseek-v2's block (MLA + the pretrained MoE) and
+the Mamba2 block. Port of the dense, mla_moe and mamba families of
+``repro/models/blocks.py``.
 
 Parameters keep the JAX layout (nested dicts, the same keys), so weights
 cross between the packages unchanged (see ``repro_torch.bridge``).
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.models.attention import gqa_attention, mla_attention
 from repro_torch.models.layers import ffn, lecun, rms_norm
+from repro_torch.models.ssm import init_mamba2_block, mamba2_block
 
 
 class BlockCtx(NamedTuple):
@@ -214,15 +216,32 @@ def mla_moe_block(x: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
     return x + y, new_cache, aux
 
 
+# ------------------------------------------------------------ mamba2
+
+def init_mamba_block(cfg, dtype, device, generator) -> dict:
+    return {"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+            "mixer": init_mamba2_block(cfg, dtype, device, generator)}
+
+
+def mamba_block(x: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
+    """ctx.cache is this layer's (conv_state, ssm_state), updated in
+    place, or None."""
+    h, new_cache = mamba2_block(rms_norm(x, p["norm1"], cfg.norm_eps),
+                                p["mixer"], cfg, cache=ctx.cache,
+                                use_kernel=ctx.use_kernel)
+    return x + h, new_cache, {}
+
+
 BLOCKS = {
     "dense": (init_dense_block, dense_block),
     "mla_moe": (init_mla_moe_block, mla_moe_block),
+    "mamba": (init_mamba_block, mamba_block),
 }
 
 
 def block_kind(cfg) -> str:
-    """The reference's block families; the port runs "dense" and
-    "mla_moe"."""
+    """The reference's block families; the port runs "dense", "mla_moe"
+    and "mamba"."""
     if cfg.family == "moe":
         return "mla_moe" if cfg.mla is not None else "moe"
     if cfg.family in ("ssm", "hybrid"):

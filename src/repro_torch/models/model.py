@@ -1,15 +1,18 @@
-"""Model facade for the dense decoder family and deepseek-v2 (MLA + the
-pretrained MoE).
+"""Model facade for the dense decoder family, deepseek-v2 (MLA + the
+pretrained MoE), Mamba2 (SSM) and the zamba2 hybrid.
 
-Port of the dense and mla_moe paths of ``repro/models/model.py``.
-Parameters are nested dicts of tensors in the JAX layout: block leaves are
-stacked over layers as (L, ...), and the reference's ``lax.scan`` over that
-stack becomes a Python loop over layers. Caches are (k, v) tuples of (L, B,
-T, KH, hd) tensors, or paged pools of (L, nblocks, bs, KH, hd), and for MLA
-(latent, rope key) tuples of (L, B, T, r) / (L, B, T, dr), or pools of (L,
-nblocks, bs, r) / (L, nblocks, bs, dr), that ``step`` updates in place.
-Other families (llama4's GQA MoE, hierarchical CMoE, SSM, enc-dec, VLM)
-are not ported yet and raise.
+Port of the dense, mla_moe, ssm and hybrid paths of
+``repro/models/model.py``. Parameters are nested dicts of tensors in the
+JAX layout: block leaves are stacked over layers as (L, ...), and the
+reference's ``lax.scan`` over that stack becomes a Python loop over
+layers. Caches are (k, v) tuples of (L, B, T, KH, hd) tensors, or paged
+pools of (L, nblocks, bs, KH, hd), and for MLA (latent, rope key) tuples of
+(L, B, T, r) / (L, B, T, dr), or pools of (L, nblocks, bs, r) / (L,
+nblocks, bs, dr); for Mamba2 (conv state, SSM state) tuples of (L, B,
+cw-1, di+2N) / (L, B, nh, hp, N), and for the hybrid that pair followed by
+the shared attention block's k and v of (n_apps, B, T, KH, hd). ``step``
+updates every cache in place. Other families (llama4's GQA MoE,
+hierarchical CMoE, enc-dec, VLM) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.blocks import BlockCtx, block_kind
 from repro_torch.models.layers import embed, rms_norm, unembed
+from repro_torch.models.ssm import d_inner, num_ssm_heads
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -71,6 +75,19 @@ def init_stacked(make, n: int):
     return stacked
 
 
+def hybrid_attn_layers(cfg: ModelConfig) -> tuple[list, list, int]:
+    """(is_attn (L,), app_idx (L,), num_apps) for zamba2-style stacks: the
+    shared attention block runs after every ``hybrid_attn_every``-th layer,
+    application i with KV cache slice i."""
+    k = cfg.hybrid_attn_every
+    is_attn = [(i + 1) % k == 0 for i in range(cfg.num_layers)]
+    app_idx, n = [], 0
+    for flag in is_attn:
+        n += flag
+        app_idx.append(n - 1)
+    return is_attn, app_idx, n
+
+
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
@@ -89,11 +106,13 @@ class Model:
         self.kind = block_kind(cfg)
         dense = cfg.family == "dense" and cfg.moe is None and cfg.mla is None
         mla_moe = self.kind == "mla_moe" and cfg.moe.moe_every == 1
-        if not (dense or mla_moe):
+        mamba = cfg.cmoe is None and (cfg.family == "ssm" or (
+            cfg.family == "hybrid" and cfg.hybrid_attn_every > 0))
+        if not (dense or mla_moe or mamba):
             raise NotImplementedError(
                 f"family {cfg.family!r} (blocks {self.kind!r}) is not ported "
-                f"yet; the port runs the dense GQA decoder family and "
-                f"deepseek-v2's MLA + MoE")
+                f"yet; the port runs the dense GQA decoder family, "
+                f"deepseek-v2's MLA + MoE, Mamba2 and the zamba2 hybrid")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_kernel = (self.device.type == "cuda") if use_kernel is None \
@@ -125,6 +144,9 @@ class Model:
         init_block, _ = B.BLOCKS[self.kind]
         params["blocks"] = init_stacked(
             lambda: init_block(cfg, dt, dev, generator), cfg.num_layers)
+        if cfg.family == "hybrid":
+            params["shared_attn"] = B.init_dense_block(cfg, dt, dev,
+                                                       generator)
         return params
 
     # ------------------------------------------------------------ stack
@@ -160,6 +182,8 @@ class Model:
                         else self.backend,
                         token_valid=token_valid, block_table=block_tables,
                         row_slots=row_slots, row_k=row_k)
+        if cfg.family == "hybrid":
+            return self._stack_hybrid(params, x, base, caches)
         blocks = params["blocks"]
         _, block_fn = B.BLOCKS[self.kind]
         taps = []
@@ -177,6 +201,33 @@ class Model:
         if dropped:
             out["dropped"] = torch.stack(dropped).sum()
         return x, caches, out
+
+    def _stack_hybrid(self, params, x: torch.Tensor, base: BlockCtx,
+                      caches):
+        """zamba2: the Mamba2 layers, and ONE shared attention + FFN block
+        applied after every ``hybrid_attn_every``-th layer, with its own KV
+        cache slice per application (``aidx``). Caches are updated in
+        place; a Python ``if`` takes the place of the reference's
+        ``lax.cond``. Returns (x, caches, {})."""
+        cfg = self.cfg
+        is_attn, app_idx, _ = hybrid_attn_layers(cfg)
+        mamba_caches, attn_k, attn_v = (caches if caches is not None
+                                        else (None, None, None))
+        blocks = params["blocks"]
+        shared = params["shared_attn"]
+        for li in range(cfg.num_layers):
+            p = tree_map(lambda a: a[li], blocks)
+            m_cache = None if mamba_caches is None else \
+                (mamba_caches[0][li], mamba_caches[1][li])
+            x, _, _ = B.mamba_block(x, p, cfg, base._replace(cache=m_cache))
+            if is_attn[li]:
+                if attn_k is not None:
+                    aidx = app_idx[li]
+                    ctx = base._replace(cache=(attn_k[aidx], attn_v[aidx]))
+                else:
+                    ctx = base._replace(cache=None, cache_pos=None)
+                x, _, _ = B.dense_block(x, shared, cfg, ctx)
+        return x, caches, {}
 
     # ------------------------------------------------------------ public
 
@@ -219,8 +270,28 @@ class Model:
                                  device=self.device) for tail in tails)
 
     def init_cache(self, batch_size: int, max_len: int):
-        """Contiguous cache: every leaf (L, batch_size, max_len, ...)."""
-        return self._cache_leaves((batch_size, max_len))
+        """Contiguous cache: every KV leaf (L, batch_size, max_len, ...);
+        for Mamba2 the conv state (L, B, cw-1, di+2N) in the model's dtype
+        and the SSM state (L, B, nh, hp, N) in float32, and for the hybrid
+        that pair with the shared attention block's k and v of (n_apps,
+        batch_size, max_len, KH, hd)."""
+        cfg = self.cfg
+        if self.kind != "mamba":
+            return self._cache_leaves((batch_size, max_len))
+        di, n, nh = d_inner(cfg), cfg.ssm.state_size, num_ssm_heads(cfg)
+        lead = (cfg.num_layers, batch_size)
+        mamba = (torch.zeros((*lead, cfg.ssm.conv_width - 1, di + 2 * n),
+                             dtype=torch_dtype(cfg), device=self.device),
+                 torch.zeros((*lead, nh, di // nh, n), dtype=torch.float32,
+                             device=self.device))
+        if cfg.family == "ssm":
+            return mamba
+        _, _, n_apps = hybrid_attn_layers(cfg)
+        shape = (n_apps, batch_size, max_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        return (mamba,
+                torch.zeros(shape, dtype=torch_dtype(cfg), device=self.device),
+                torch.zeros(shape, dtype=torch_dtype(cfg), device=self.device))
 
     def init_paged_cache(self, num_blocks: int, block_size: int):
         """Paged pool: the per-token layout of ``init_cache`` with the
@@ -228,7 +299,12 @@ class Model:
         every leaf (L, num_blocks, block_size, ...). Lanes address it
         through per-slot block tables (``step(block_tables=...)``);
         physical block 0 is the trash block that absorbs dummy and spill
-        writes (see ``repro_torch.serving.cache.PagedKVCache``)."""
+        writes (see ``repro_torch.serving.cache.PagedKVCache``). Only the
+        slot-addressable KV families the engine serves have one."""
+        if self.kind == "mamba":
+            raise NotImplementedError(
+                f"paged cache serves the slot-addressable KV families; "
+                f"kind={self.kind!r} is not one")
         return self._cache_leaves((num_blocks, block_size))
 
     def step(self, params, tokens: torch.Tensor, cache, slot_pos, *,

@@ -358,6 +358,20 @@ class _InFlight:
     #                      activation tier) — the 7th backend_log column
 
 
+def check_servable(cfg, kind) -> None:
+    """Raise unless the engine serves this model. As in the reference it
+    needs a positional KV cache, which the SSM, hybrid and enc-dec families
+    lack; of the KV families, the port serves the dense and MLA ones."""
+    if cfg.family in ("ssm", "hybrid", "audio"):
+        raise NotImplementedError(
+            f"serving engine needs a positional KV cache; family="
+            f"{cfg.family!r} kind={kind!r} is not slot-addressable")
+    if kind not in ("dense", "mla_moe"):
+        raise NotImplementedError(
+            f"serving engine needs a positional KV cache of a ported "
+            f"family; family={cfg.family!r} kind={kind!r} is not ported")
+
+
 class ServingEngine:
     """Continuous-batching engine over a slot KV cache.
 
@@ -413,12 +427,7 @@ class ServingEngine:
         if prefix_reuse and not paged:
             raise ValueError("prefix_reuse needs paged=True — sharing is "
                              "a block-table property")
-        kind = getattr(model, "kind", None)
-        if kind not in ("dense", "mla_moe"):
-            raise NotImplementedError(
-                f"serving engine needs a positional KV cache of a ported "
-                f"family; family={model.cfg.family!r} kind={kind!r} is not "
-                f"ported")
+        check_servable(model.cfg, getattr(model, "kind", None))
         self.model = model
         self.params = params
         self.max_slots = max_slots

@@ -229,3 +229,75 @@ def test_cuda_row_matmul_is_width_invariant(dtype, k, n):
         y = matmul(x[:width], w)
         for row in {0, width - 1}:
             assert torch.equal(y[row:row + 1], matmul(x[row:row + 1], w))
+
+
+def _ssd_case(g, dev, dtype, b, s, nh, hp, n, state):
+    """ssd_scan operands as the model hands them: xh, B and C are views of
+    one conv output (batch and sequence strides over di + 2N channels), dt
+    post-softplus in float32, and h0 random or None."""
+    di = nh * hp
+    conv = torch.randn((b, s, di + 2 * n), generator=g, device=dev).to(dtype)
+    xh = conv[..., :di].reshape(b, s, nh, hp)
+    bm, cm = conv[..., di:di + n], conv[..., di + n:]
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, nh), generator=g, device=dev) - 1.0)
+    a_log = 0.3 * torch.randn((nh,), generator=g, device=dev)
+    d_skip = torch.randn((nh,), generator=g, device=dev)
+    h0 = torch.randn((b, nh, hp, n), generator=g, device=dev) \
+        if state else None
+    return xh, dt, bm, cm, a_log, d_skip, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,nh,hp,n,state", [
+    (4, 32, 32, 64, 128, False),     # mamba2-370m's prefill, fresh state
+    (4, 32, 32, 64, 128, True),      # the same from a carried state
+    (3, 100, 8, 64, 128, True),      # not a multiple of the kernel chunk
+    (2, 2048, 32, 64, 128, False),   # a long forward
+    (2, 96, 64, 64, 64, True)])      # zamba2-1.2b's widths
+def test_cuda_ssd_scan_matches_plain(dtype, b, s, nh, hp, n, state):
+    """ssd_scan on strided views of one conv output against its plain
+    version at the config's chunk of 256: |err| <= 1e-4 max|ref| for y and
+    h_fin (fp32 arithmetic on the same values in both types, chunked
+    differently); one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    args = _ssd_case(g, dev, getattr(torch, dtype), b, s, nh, hp, n, state)
+    tops.reset_launches()
+    y, h = tops.ssd_scan(*args[:6], chunk=256, h0=args[6])
+    y_ref, h_ref = ssd_scan_plain(*args[:6], 256, h0=args[6])
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["ssd_scan"] == 1
+    for got, ref in ((y, y_ref), (h, h_ref)):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        tol = 1e-4 * ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_rejects_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    xh, dt, bm, cm, a_log, d_skip, _ = _ssd_case(g, dev, torch.float32, 2,
+                                                 8, 4, 16, 32, False)
+    with pytest.raises(TypeError):
+        tops.ssd_scan(xh, dt, bm.bfloat16(), cm, a_log, d_skip)
+    with pytest.raises(ValueError):
+        tops.ssd_scan(xh, dt.double(), bm, cm, a_log, d_skip)
+    with pytest.raises(ValueError):
+        tops.ssd_scan(xh, dt, bm, cm, a_log, d_skip,
+                      h0=torch.zeros((2, 4, 16, 32)))   # h0 on the CPU
+    with pytest.raises(ValueError):                   # over shared memory
+        big = torch.zeros((1, 4, 1, 256), device=dev)
+        tops.ssd_scan(big, torch.ones((1, 4, 1), device=dev),
+                      torch.zeros((1, 4, 512), device=dev),
+                      torch.zeros((1, 4, 512), device=dev),
+                      torch.zeros(1, device=dev), torch.ones(1, device=dev))

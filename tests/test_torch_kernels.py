@@ -114,6 +114,13 @@ def test_wrappers_route_cpu_tensors_to_plain_without_counting():
                               table=torch.tensor([[1, 2], [2, 1]]),
                               pos=torch.tensor([5, 7]), scale=0.5)
     assert o.shape == (2, 4, 16)
+    xh = torch.from_numpy(_rand(rng, (2, 9, 3, 4)))
+    dt = torch.from_numpy(np.abs(_rand(rng, (2, 9, 3))))
+    bc = torch.from_numpy(_rand(rng, (2, 9, 8)))
+    h0 = torch.from_numpy(_rand(rng, (2, 3, 4, 8)))
+    y, h = tops.ssd_scan(xh, dt, bc, bc, torch.zeros(3), torch.ones(3),
+                         chunk=4, h0=h0)
+    assert y.shape == (2, 9, 3, 4) and h.shape == (2, 3, 4, 8)
     assert tops.LAUNCHES == {"swiglu_ffn": 0, "moe_gmm_ragged": 0,
                              "moe_gather": 0, "paged_attn_decode": 0,
-                             "mla_paged_decode": 0}
+                             "mla_paged_decode": 0, "ssd_scan": 0}

@@ -344,7 +344,7 @@ def test_cli_refuses_hierarchical_cmoe(argv):
 
 
 @pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
-                                  "mamba2-370m", "whisper-small"])
+                                  "gemma3-4b", "whisper-small"])
 def test_unported_archs_still_raise(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tserve.run(["--arch", arch, "--smoke", "--device", "cpu"])
