@@ -6,8 +6,9 @@
 
 Phases (any failure raises and exits nonzero; no phase catches its own):
   1. device and build: the card's name and power limit (nvidia-smi), then
-     the six CUDA kernels built from ``src/repro_torch/kernels/csrc`` with
-     nvcc, one process per source, all started together;
+     the eight CUDA kernels built from the seven sources in
+     ``src/repro_torch/kernels/csrc`` with nvcc, one process per source,
+     all started together;
   2. each kernel against its plain PyTorch version on the card at the shapes
      of its path, in float32 (|err| <= 1e-4 max|ref|) and bfloat16 (|err|
      <= 2e-2 max|ref|; sentinel rows of moe_gather exactly zero;
@@ -24,7 +25,13 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      on one converted model (prefill logits within 1e-3 max|logit|, greedy
      tokens compared), (b) in bfloat16 through the serving CLI's entry
      point (convert S3A3E8, prefill 4 x 32, decode 16 tokens), with every
-     kernel's launch count zeroed just before and read just after;
+     kernel's launch count zeroed just before and read just after; between
+     them path B, the CMoE router's fused scoring: ops.router_score on
+     every layer of (a)'s converted model, on the layer's captured FFN
+     input over the calibration batch (4 x 128 tokens), counts zeroed just
+     before and read just after (24 launches), each layer held against the
+     plain version and core.router.router_scores, the gate's top-k ids
+     compared token by token;
   4. the continuous-batching engine at the same width in bfloat16: first
      each dense product of the engine (and the norm) is checked bitwise
      width-invariant on the card (a row alone and inside every width the
@@ -43,7 +50,14 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      (prefill 4 x 32, 16 generated); (c) bfloat16, 4 layers, the engine
      through the CLI's entry point (the phase 4 arguments without
      conversion: overlapped + paged, with parity replays), launch counts
-     zeroed before (b) and before (c) and read after each;
+     zeroed before (b) and before (c) and read after each; path A, the
+     bounded-buffer routed-expert path (moe_gate -> assign_positions ->
+     dispatch -> expert_ffn, i.e. ops.moe_gmm -> combine), after (a) on its
+     float32 model and after (c) on the engine's bfloat16 model: the last
+     layer's captured FFN input over 4 x 32 tokens with its own router, at
+     C = the largest expert load (no drops, equal to the exact oracle) and
+     a quarter of it (drops equal to the loads past C, kept pairs equal to
+     the oracle masked by keep), counts zeroed before and read after;
   6. the SSM family at full published width and depth: (a) float32, for
      mamba2-370m and zamba2-1.2b, the kernel path against the plain path
      on one set of weights: Model.forward on 2 x 1024 tokens, then a 4 x 32
@@ -57,7 +71,13 @@ Phase 2 also holds ssd_scan against its plain version (float32, and bf16
 inputs, |err| <= 1e-4 max|ref|: the arithmetic is float32 in both) at
 mamba2's prefill shape from a zero and a random state, a length that is
 not a multiple of the kernel's chunk, a long forward (2 x 2048) and
-zamba2's widths, and times it at the prefill shape.
+zamba2's widths, and times it at the prefill shape; moe_gmm at C = 8, 1,
+70 and 130 and at deepseek-v2's expert widths (E 160, d 5120, m 1536, C =
+8, where it is timed), and router_score at d 1024 / N_r 5 and d 4096 /
+N_r 5 and 13 for T of 4, 128, 512 and 100 (timed at T 512, d 1024, N_r
+5), each in float32 and bfloat16 with the tolerances above. Before each
+SSM model the memory still allocated is printed before and after a
+garbage collection.
 Prints the kernels JSON line, then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -110,6 +130,12 @@ DS_ENGINE_ARGS = ["--arch", DS_ARCH, "--layers", str(DS_LAYERS)] + \
 MLA_MAIN = dict(rows=4, heads=128, r=512, dr=64, bs=16, depth=80)
 MLA_LONG = dict(rows=32, heads=128, r=512, dr=64, bs=16, depth=2048)
 MLA_SCALE = (128 + 64) ** -0.5
+
+# moe_gmm's timed shape: deepseek-v2's experts at a static prefill's
+# capacity (4 x 32 tokens, top-6 of 160: 4.8 rows an expert on average);
+# router_score's: the converted qwen1.5-0.5b's calibration batch
+GMM_C = 8
+ROUTER_MAIN = (4 * 128, 1024, 5)
 
 # the SSM family (phase 6): full published width and depth, one card
 SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
@@ -310,6 +336,8 @@ def kernel_phase() -> dict:
     records["mla_paged_decode"] = mla_phase(g, dev)
     records["ssd_scan"] = ssd_phase(g, dev)
     deepseek_expert_times(g, dev, records)
+    records["moe_gmm"] = moe_gmm_phase(g, dev)
+    records["router_score"] = router_score_phase(g, dev)
     for r in records.values():
         lib = "null" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
@@ -707,8 +735,117 @@ def deepseek_expert_times(g, dev, records: dict) -> None:
                                                     top_k=k), BATCH * k)
 
 
-def f32_agreement() -> None:
-    """Phase 3a: kernel path vs plain path on one converted f32 model."""
+def moe_gmm_phase(g, dev) -> dict:
+    """moe_gmm over dense (E, C, d) capacity buffers against its plain
+    version: C = 8, C = 1 and C of 70 and 130 (not multiples of the 64-row
+    tile, one and three tiles an expert) at qwen1.5-0.5b's converted expert
+    width, then deepseek-v2's expert widths (E 160, d 5120, m 1536) at C =
+    8 in float32 and bfloat16; timed there in bfloat16 beside its plain
+    version, a torch.bmm yardstick and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gmm import moe_gmm_plain
+
+    def rnd(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def bank(e, d, m, dtype):
+        return [rnd((e, d, m), dtype, d ** -0.5),
+                rnd((e, d, m), dtype, d ** -0.5),
+                rnd((e, m, d), dtype, m ** -0.5)]
+
+    for dt in (torch.float32, torch.bfloat16):
+        for e, c, d, m, act in ((8, 8, 1024, 352, "swiglu"),
+                                (8, 1, 1024, 352, "swiglu"),
+                                (8, 70, 1024, 352, "geglu"),
+                                (4, 130, 1024, 352, "swiglu")):
+            x, w = rnd((e, c, d), dt), bank(e, d, m, dt)
+            check(f"moe_gmm E={e} C={c} d={d} m={m} {act}",
+                  ops.moe_gmm(x, *w, activation=act),
+                  moe_gmm_plain(x, *w, act), dt)
+    ds = get_config(DS_ARCH)
+    e, c, d, m = ds.moe.num_experts, GMM_C, ds.d_model, ds.moe.d_expert
+    w32 = bank(e, d, m, torch.float32)            # 15.1 GB
+    x32 = rnd((e, c, d), torch.float32)
+    check(f"moe_gmm deepseek-v2 E={e} C={c} d={d} m={m}",
+          ops.moe_gmm(x32, *w32), moe_gmm_plain(x32, *w32), torch.float32)
+    bf = torch.bfloat16
+    wb = [t.to(bf) for t in w32]                  # 7.55 GB
+    del w32
+    err = check(f"moe_gmm deepseek-v2 E={e} C={c} d={d} m={m}",
+                ops.moe_gmm(x32.to(bf), *wb), moe_gmm_plain(x32.to(bf), *wb),
+                bf)
+    del x32
+    # one bank shared by the sets (7.55 GB, far past L2): they differ in x
+    sets = [[rnd((e, c, d), bf)] + wb for _ in range(2)]
+    ms = time_ms(lambda x, wg, wu, wd: ops.moe_gmm(x, wg, wu, wd), sets,
+                 iters=10)
+    plain_ms = time_ms(lambda *a: moe_gmm_plain(*a), sets, iters=10)
+    lib_ms = time_ms(lambda x, wg, wu, wd: torch.bmm(
+        F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd), sets, iters=10)
+    nbytes = 2 * (3 * e * d * m + 2 * e * c * d)
+    b_ms, b_by = bound(6 * e * c * d * m, nbytes, "bfloat16")
+    return dict(
+        name="moe_gmm", route="cuda",
+        source="src/repro_torch/kernels/csrc/moe_gmm.cu",
+        replaces="src/repro/kernels/moe_gmm.py:60", launches=None,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, dtype="bfloat16",
+        shape=f"E={e} C={c} d={d} m={m}")
+
+
+def router_score_phase(g, dev) -> dict:
+    """router_score against its plain version at qwen1.5-0.5b's converted
+    widths (d 1024, N_r 5) and llama2-7b's (d 4096, N_r 5 and 13), at T of
+    4, 128, 512 and 100 (not a multiple of any block), in float32 and
+    bfloat16; timed at the converted qwen's calibration batch (T 512, d
+    1024, N_r 5) in bfloat16."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.router_score import router_score_plain
+
+    def case(t, d, nr, dtype):
+        x = torch.randn((t, d), generator=g, device=dev).to(dtype)
+        w = [(torch.randn((d, nr), generator=g, device=dev) *
+              d ** -0.5).to(dtype) for _ in range(2)]
+        return [x] + w
+
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for d, nr in ((1024, 5), (4096, 5), (4096, 13)):
+            for t in (4, 128, 512, 100):
+                x, wg, wu = case(t, d, nr, dt)
+                e = check(f"router_score T={t} d={d} N_r={nr}",
+                          ops.router_score(x, wg, wu),
+                          router_score_plain(x, wg, wu), dt)
+                if dt == torch.bfloat16 and (t, d, nr) == ROUTER_MAIN:
+                    err = e
+    t, d, nr = ROUTER_MAIN
+    nbytes = 2 * t * d + 2 * 2 * d * nr + 4 * t * nr
+    sets = [case(t, d, nr, torch.bfloat16) for _ in range(n_sets(nbytes))]
+    ms = time_ms(lambda x, wg, wu: ops.router_score(x, wg, wu), sets)
+    plain_ms = time_ms(lambda *a: router_score_plain(*a), sets)
+    lib_ms = time_ms(lambda x, wg, wu: F.silu((x @ wg).float()) *
+                     (x @ wu).float(), sets)
+    b_ms, b_by = bound(4 * t * d * nr, nbytes, "bfloat16")
+    return dict(
+        name="router_score", route="cuda",
+        source="src/repro_torch/kernels/csrc/router_score.cu",
+        replaces="src/repro/kernels/router_score.py:36", launches=None,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, dtype="bfloat16 x and weights, "
+        "float32 scores", shape=f"T={t} d={d} N_r={nr}")
+
+
+def f32_agreement():
+    """Phase 3a: kernel path vs plain path on one converted f32 model.
+    Returns the converted kernel-path model, its params and the
+    calibration tokens, for path B."""
     import numpy as np
     import torch
 
@@ -757,6 +894,156 @@ def f32_agreement() -> None:
           f"tokens agree {agree}/{BATCH * GEN}")
     if not (torch.isfinite(lk).all() and err <= 1e-3 * scale):
         raise AssertionError("f32 kernel path disagrees with the plain path")
+    return k_model, cparams, calib["tokens"]
+
+
+def router_path(model, params, tokens) -> dict:
+    """Path B: the CMoE analytical router's fused scoring through
+    ops.router_score on every layer of the converted f32 model of phase 3a,
+    on that layer's captured FFN input over the calibration batch and its
+    own router weights, with the launch counts zeroed just before and read
+    just after. Each layer's scores are held against the plain version
+    (<= 1e-4 max|ref|) and against core.router.router_scores (<= 1e-5
+    max|ref|: float32, so its rounding of the products is none), and the
+    top-k ids the gate picks from each are compared token by token.
+    Returns the launch counts."""
+    import torch
+
+    from repro_torch.core.router import cmoe_gate, router_scores
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.router_score import router_score_plain
+
+    cfg = model.cfg
+    act, top_k, d = cfg.activation, cfg.cmoe.top_k, cfg.d_model
+    ffn = params["blocks"]["cmoe"]
+    with torch.no_grad():
+        xs = model.ffn_inputs(params, {"tokens": tokens}).reshape(
+            cfg.num_layers, -1, d)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    scores = [ops.router_score(xs[li], ffn["router"]["wg_r"][li],
+                               ffn["router"]["wu_r"][li], activation=act)
+              for li in range(cfg.num_layers)]
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    got = {k: v for k, v in launches.items() if v}
+    if got != {"router_score": cfg.num_layers}:
+        raise AssertionError(f"path B launches {got}, want router_score "
+                             f"once a layer ({cfg.num_layers})")
+    worst_plain = worst_ref = 0.0
+    differ = ties = 0
+    for li, s in enumerate(scores):
+        rp = {n: ffn["router"][n][li] for n in ("wg_r", "wu_r")}
+        plain = router_score_plain(xs[li], rp["wg_r"], rp["wu_r"], act)
+        ref = router_scores(xs[li], rp, act)
+        rel = []
+        for what, want, tol in (("plain", plain, 1e-4),
+                                ("router_scores", ref, 1e-5)):
+            rel.append(((s - want).abs().max() / want.abs().max()).item())
+            if not (torch.isfinite(s).all() and rel[-1] <= tol):
+                raise AssertionError(f"path B layer {li}: router_score vs "
+                                     f"{what} {rel[-1]:.3e} > {tol} "
+                                     f"max|ref|")
+        worst_plain, worst_ref = max(worst_plain, rel[0]), \
+            max(worst_ref, rel[1])
+        bias = ffn["bias"][li]
+        ids_k = cmoe_gate(s, top_k, bias=bias)[1].sort(-1).values
+        _, ids_r, probs_r = cmoe_gate(ref, top_k, bias=bias)
+        bad = (ids_k != ids_r.sort(-1).values).any(-1)
+        differ += int(bad.sum())
+        if bad.any():
+            # the gate ranks probs + bias: a fork is allowed only where the
+            # k-th and (k+1)-th selection values tie within 1e-6
+            sel = (probs_r + bias[None, :]).sort(-1, descending=True).values
+            gap = sel[bad, top_k - 1] - sel[bad, top_k]
+            ties += int((gap <= 1e-6).sum())
+    print(f"[path B] router_score on {cfg.num_layers} layers x "
+          f"{xs.shape[1]} tokens (d {d}, N_r {ffn['router']['wg_r'].shape[-1]}"
+          f", float32): max|kernel - plain| / max|plain| {worst_plain:.3e} "
+          f"(tol 1e-4), vs router_scores {worst_ref:.3e} (tol 1e-5); top-"
+          f"{top_k} ids differ on {differ} tokens, {ties} of them at a tie "
+          f"within 1e-6; launches {got}")
+    if differ != ties:
+        raise AssertionError(f"path B: top-k ids differ on {differ} tokens, "
+                             f"only {ties} at a tie")
+    return launches
+
+
+def capacity_path(model, params, tag: str) -> dict:
+    """Path A: the bounded-buffer routed-expert path at deepseek-v2's
+    expert widths, on the FFN input of the last MoE layer of a deepseek
+    model phase 5 built (captured by Model.ffn_inputs over 4 x 32 tokens)
+    with that layer's router and experts: moe_gate -> assign_positions
+    (router weight as priority) -> dispatch into (E, C, d) buffers ->
+    expert_ffn (ops.moe_gmm) -> combine, at C = the largest expert load
+    (zero drops; equal to routed_experts' exact oracle) and at a quarter
+    of it (the dropped pairs equal each expert's load past C; the kept
+    pairs equal the oracle masked by keep). Launch counts are zeroed just
+    before the two runs and read just after. Returns them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.experts import (DispatchInfo, assign_positions,
+                                          combine, dispatch, dropped_pairs,
+                                          routed_experts)
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import tree_map
+    from repro_torch.models.moe import expert_ffn, moe_gate
+
+    cfg = model.cfg
+    moe, d, li = cfg.moe, cfg.d_model, cfg.num_layers - 1
+    e = moe.num_experts
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)), dtype=torch.long,
+        device=model.device)
+    with torch.no_grad():
+        xf = model.ffn_inputs(params, {"tokens": tokens})[li].reshape(-1, d)
+    p = tree_map(lambda a: a[li], params["blocks"]["moe"])
+    gates, idx, _ = moe_gate(xf, p, moe)
+    load = torch.bincount(idx.reshape(-1), minlength=e)
+    c_max = int(load.max())
+    caps = (c_max, max(1, c_max // 4))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    runs = []
+    for cap in caps:
+        pos, keep = assign_positions(idx, e, cap, priority=gates)
+        info = DispatchInfo(idx, pos, keep, gates)
+        xbuf = dispatch(xf, info, e, cap)
+        ybuf = expert_ffn(xbuf, p["wg"], p["wu"], p["wd"], cfg.activation,
+                          use_kernel=model.use_kernel)
+        runs.append((cap, combine(ybuf, info), keep))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    got = {k: v for k, v in launches.items() if v}
+    if got != {"moe_gmm": len(caps)}:
+        raise AssertionError(f"path A ({tag}) launches {got}, want moe_gmm "
+                             f"once a capacity ({len(caps)})")
+    tol = 1e-4 if xf.dtype == torch.float32 else 2e-2
+    bank = {n: p[n] for n in ("wg", "wu", "wd")}
+    for cap, out, keep in runs:
+        roomy = cap == c_max
+        dropped = int(dropped_pairs(keep, None, idx.shape))
+        over = int((load - cap).clamp(min=0).sum())
+        if dropped != over or (dropped == 0) != roomy:
+            raise AssertionError(f"path A ({tag}) C={cap}: {dropped} pairs "
+                                 f"dropped, loads past C give {over}")
+        ref, _ = routed_experts(xf, bank, gates, idx, cfg, backend="exact",
+                                valid=None if roomy else keep)
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        if not (out.shape == xf.shape and torch.isfinite(out).all() and
+                err <= tol * scale):
+            raise AssertionError(f"path A ({tag}) C={cap}: max|err| "
+                                 f"{err:.3e} > {tol} x {scale:.3e}")
+        print(f"[path A {tag}] {cfg.name} layer {li}, {xf.shape[0]} tokens "
+              f"top-{moe.top_k} of {e} experts (d {d}, m {moe.d_expert}), "
+              f"C={cap} (largest load {c_max}): {dropped} of {idx.numel()} "
+              f"pairs dropped (loads past C: {over}); max|combine - exact"
+              f"{'' if roomy else ' masked by keep'}| {err:.3e} (tol "
+              f"{tol * scale:.3e})")
+    print(f"[path A {tag}] launches {got}")
+    return launches
 
 
 def width_invariance() -> None:
@@ -928,13 +1215,14 @@ def engine_phase() -> dict:
     return launches
 
 
-def deepseek_f32_agreement() -> None:
+def deepseek_f32_agreement() -> dict:
     """Phase 5a: deepseek-v2 at full width in float32, cut to DS_F32_LAYERS
     layers: the kernel path (mla_paged_decode, moe_gmm_ragged, moe_gather)
     against the plain path on one set of weights, through Model.step on a
     paged cache with fragmented tables: a 32-token prefill chunk on 4
     lanes, then 4 decode steps. Both paths are fed the kernel path's greedy
-    tokens, so every step's logits are comparable."""
+    tokens, so every step's logits are comparable. Then path A in float32
+    on the same model; returns its launch counts."""
     import numpy as np
     import torch
 
@@ -992,13 +1280,15 @@ def deepseek_f32_agreement() -> None:
     print(f"[e2e deepseek f32] kernel vs plain over a prefill chunk and "
           f"{steps} decode steps: max|err| / max|logit| {worst:.3e} (tol "
           f"1e-3); greedy tokens agree {agree}/{rows * (steps + 1)}")
+    return capacity_path(k_model, params, "f32")
 
 
 def deepseek_serving() -> dict:
     """Phases 5b and 5c: deepseek-v2 at full width in bfloat16, cut to
     DS_LAYERS layers, through the CLI's entry point: the static path, then
-    the engine. Launch counts are zeroed before each and read after.
-    Returns the engine run's launch counts."""
+    the engine. Launch counts are zeroed before each and read after. Then
+    path A in bfloat16 on the engine's model. Returns the engine run's
+    launch counts and path A's."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1065,19 +1355,23 @@ def deepseek_serving() -> dict:
           f"{rep.tpot_p95_s * 1e3:.2f} ms, overlap occupancy "
           f"{rep.overlap_occupancy:.3f}, backends {bc}, audit "
           f"{rep.pool_audit}, parity {res['parity']}, launches {launches}")
-    return launches
+    # path A in bfloat16 on the model the engine served
+    path_a = capacity_path(res["engine"].model, res["engine"].params, "bf16")
+    return launches, path_a
 
 
 def free_device(what: str) -> None:
-    """Release what earlier phases left (the serving engines hold
-    reference cycles, so their models stay on the card until a collection
-    runs) and print what is still allocated before `what`."""
+    """Release what earlier phases left and print what is still allocated
+    before `what`, before and after a garbage collection (a finished
+    serving engine holds no reference cycle, so the two should agree)."""
     import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"[memory] {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated "
-          f"before {what}")
+    print(f"[memory] {before / 1e9:.3f} GB allocated before {what}, "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB after a collection")
 
 
 def ssm_f32_agreement(arch: str) -> None:
@@ -1230,7 +1524,7 @@ def main(argv=None) -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     seconds = build.build_all()
-    print(f"[build] {len(seconds)} kernels built in "
+    print(f"[build] {len(seconds)} sources built in "
           f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
@@ -1245,7 +1539,11 @@ def main(argv=None) -> int:
         return 0
 
     # phase 3a: f32 kernel path vs plain path at full width
-    f32_agreement()
+    model, cparams, calib = f32_agreement()
+    # path B: the CMoE router's fused scoring on that converted model
+    launches = router_path(model, cparams, calib)
+    records["router_score"]["launches"] = launches["router_score"]
+    del model, cparams, calib
 
     # phase 3b: the main path, bf16, through the serving CLI's entry point
     torch.cuda.synchronize()
@@ -1284,9 +1582,12 @@ def main(argv=None) -> int:
                                  f"engine's path")
         records[name]["launches"] = launches[name]
 
-    # phase 5: deepseek-v2 at full width, cut in depth
-    deepseek_f32_agreement()
-    launches = deepseek_serving()
+    # phase 5: deepseek-v2 at full width, cut in depth, with path A (the
+    # bounded-buffer expert path) on the f32 and the bf16 model
+    path_a = deepseek_f32_agreement()
+    records["moe_gmm"]["launches_f32"] = path_a["moe_gmm"]
+    launches, path_a = deepseek_serving()
+    records["moe_gmm"]["launches"] = path_a["moe_gmm"]
     records["mla_paged_decode"]["launches"] = launches["mla_paged_decode"]
     for name in ("moe_gmm_ragged", "moe_gather"):
         records[name]["launches_deepseek_engine"] = launches[name]

@@ -26,10 +26,17 @@ an independent product against its expert's weights.
 ``select_backend`` uses the ~E/k break-even heuristic only. The JAX
 package's measured-crossover file holds CPU numbers at another bank shape
 and is not read here.
+
+The bounded-buffer machinery (``assign_positions`` / ``dispatch`` /
+``combine`` over dense (E, C, d) capacity buffers, and
+``grouped_expert_ffn``, whose kernel is the CUDA ``moe_gmm``) is ported as
+the reference has it, with no caller on a model path: the reference's
+callers are ``models.moe.expert_ffn`` and the sharded EP binning (not
+ported). Every function takes the capacity as an argument.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -71,6 +78,86 @@ def dropped_pairs(keep: torch.Tensor, valid: Optional[torch.Tensor], shape
     vmask = torch.ones(shape, dtype=torch.bool, device=keep.device) \
         if valid is None else torch.broadcast_to(valid, shape)
     return (vmask & ~keep).sum().to(torch.int32)
+
+
+# ------------------------------------------------------- capacity dispatch
+
+class DispatchInfo(NamedTuple):
+    expert_idx: torch.Tensor    # (T, k) expert ids (E = sentinel)
+    position: torch.Tensor      # (T, k) int64 position in its expert buffer
+    keep: torch.Tensor          # (T, k) bool: False if over capacity
+    gates: torch.Tensor         # (T, k) combine weights
+
+
+def assign_positions(expert_idx: torch.Tensor, num_experts: int,
+                     capacity: int, priority: Optional[torch.Tensor] = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-assignment position within its expert's bounded buffer: the
+    assignment's rank among all assignments aimed at the same expert,
+    ordered by DESCENDING ``priority`` (router weight), ties to the lower
+    flat assignment id (token-major); with ``priority=None`` by flat id
+    alone. Rank >= capacity is dropped, so overflow evicts the
+    lowest-weighted assignments first.
+
+    The reference's lexsort on (flat id, -priority, expert) becomes stable
+    sorts, least significant key first: the flat ids are already in order,
+    so a stable sort by -priority, then a stable sort by expert. The
+    sentinel id ``num_experts`` ranks in its own phantom segment and takes
+    no real expert's capacity.
+
+    expert_idx: (T, k). Returns (position (T, k) int64, keep (T, k))."""
+    t, k = expert_idx.shape
+    n = t * k
+    dev = expert_idx.device
+    flat_e = expert_idx.reshape(-1).long()
+    if priority is None:
+        order = torch.arange(n, device=dev)
+    else:
+        order = torch.argsort(-priority.reshape(-1).float(), stable=True)
+    order = order[torch.argsort(flat_e[order], stable=True)]
+    sorted_e = flat_e[order]
+    counts = torch.zeros(num_experts + 1, dtype=torch.long, device=dev)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
+    rank = torch.arange(n, device=dev) - starts[sorted_e]
+    position = torch.empty_like(rank)
+    position[order] = rank
+    position = position.reshape(t, k)
+    return position, position < capacity
+
+
+def dispatch(x: torch.Tensor, info: DispatchInfo, num_experts: int,
+             capacity: int) -> torch.Tensor:
+    """x: (T, d) -> expert buffers (E, C, d). Dropped assignments add an
+    exact zero; the sentinel expert's writes land in one spare expert
+    block that is cut off (the reference's ``mode="drop"``)."""
+    t, d = x.shape
+    k = info.expert_idx.shape[1]
+    flat_e = info.expert_idx.reshape(-1).long().clamp(0, num_experts)
+    keep = info.keep.reshape(-1)
+    flat_p = torch.where(keep, info.position.reshape(-1).long(), 0)
+    contrib = x.repeat_interleave(k, dim=0) * keep[:, None].to(x.dtype)
+    buf = torch.zeros((num_experts + 1, capacity, d), dtype=x.dtype,
+                      device=x.device)
+    buf.index_put_((flat_e, flat_p), contrib, accumulate=True)
+    return buf[:num_experts]
+
+
+def combine(ybuf: torch.Tensor, info: DispatchInfo) -> torch.Tensor:
+    """ybuf: (E, C, d) -> (T, d), each assignment's row weighted by gate x
+    keep. The reference's gather ``ybuf[flat_e, flat_p]`` CLAMPS an
+    out-of-range index (JAX gather semantics: the sentinel id reads expert
+    E - 1); torch indexing would raise, so the clamp is explicit."""
+    t, k = info.expert_idx.shape
+    n_e, c = ybuf.shape[:2]
+    keep = info.keep.reshape(-1)
+    flat_e = info.expert_idx.reshape(-1).long().clamp(0, n_e - 1)
+    flat_p = torch.where(keep, info.position.reshape(-1).long(),
+                         0).clamp(0, c - 1)
+    rows = ybuf[flat_e, flat_p]                              # (T*k, d)
+    w = info.gates.reshape(-1, 1).to(ybuf.dtype) * \
+        keep.reshape(-1, 1).to(ybuf.dtype)
+    return (rows * w).reshape(t, k, -1).sum(dim=1)
 
 
 # ------------------------------------------------- ragged segment dispatch
@@ -173,6 +260,31 @@ def segment_ffn_plain(xp: torch.Tensor, owner: torch.Tensor, weights: dict,
 
 
 # ----------------------------------------------------------- expert GEMMs
+
+def grouped_expert_ffn(xbuf: torch.Tensor, weights: dict, activation: str,
+                       use_kernel: bool = False) -> torch.Tensor:
+    """Batched expert FFN over DENSE capacity buffers: xbuf (E, C, d) with
+    per-expert weights (E, d, m) / (E, m, d) -> (E, C, d) in xbuf's dtype.
+    Glu banks under ``use_kernel`` go through ``ops.moe_gmm`` (the CUDA
+    kernel on a CUDA tensor); a non-glu {wi, wd} bank runs the plain
+    products even then, as the reference does (the kernel is glu-only)."""
+    glu = _is_glu(weights)
+    if use_kernel and glu:
+        from repro_torch.kernels import ops as kops
+        return kops.moe_gmm(xbuf, weights["wg"], weights["wu"],
+                            weights["wd"], activation=activation)
+    act = _act(activation)
+    x = xbuf.float()
+    if glu:
+        g = torch.bmm(x, weights["wg"].to(xbuf.dtype).float())
+        u = torch.bmm(x, weights["wu"].to(xbuf.dtype).float())
+        h = (act(g) * u).to(xbuf.dtype)
+    else:
+        g = torch.bmm(x, weights["wi"].to(xbuf.dtype).float())
+        h = act(g).to(xbuf.dtype)
+    return torch.bmm(h.float(), weights["wd"].to(xbuf.dtype).float()
+                     ).to(xbuf.dtype)
+
 
 def all_experts_ffn(xf: torch.Tensor, weights: dict, activation: str
                     ) -> torch.Tensor:

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("swiglu", "moe_gmm", "moe_gather", "paged_attn", "mla_paged",
-           "ssd_scan")
+           "ssd_scan", "router_score")
 HEADERS = ("ffn_core.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -31,17 +31,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
-# C entry points: every pointer and the stream as c_void_p, sizes as c_int,
-# the attention scale as c_float, element strides as c_longlong
+# C entry points by name: (the source that exports it, its argument types).
+# Every pointer and the stream as c_void_p, sizes as c_int, the attention
+# scale as c_float, element strides as c_longlong. A source may export more
+# than one entry: moe_gmm.cu holds both grouped expert FFNs of the Pallas
+# file it ports, over one shared core, so they build in one nvcc process.
 SIGNATURES = {
-    "swiglu": ("swiglu_ffn_launch", [_P] * 6 + [_I] * 5 + [_P]),
-    "moe_gmm": ("moe_gmm_ragged_launch", [_P] * 7 + [_I] * 7 + [_P]),
-    "moe_gather": ("moe_gather_launch", [_P] * 7 + [_I] * 7 + [_P]),
-    "paged_attn": ("paged_attn_decode_launch",
-                   [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
-    "mla_paged": ("mla_paged_decode_launch",
-                  [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
-    "ssd_scan": ("ssd_scan_launch", [_P] * 9 + [_I] * 5 + [_L] * 8 + [_I, _P]),
+    "swiglu_ffn_launch": ("swiglu", [_P] * 6 + [_I] * 5 + [_P]),
+    "moe_gmm_ragged_launch": ("moe_gmm", [_P] * 7 + [_I] * 7 + [_P]),
+    "moe_gmm_launch": ("moe_gmm", [_P] * 6 + [_I] * 6 + [_P]),
+    "moe_gather_launch": ("moe_gather", [_P] * 7 + [_I] * 7 + [_P]),
+    "paged_attn_decode_launch": ("paged_attn",
+                                 [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
+    "mla_paged_decode_launch": ("mla_paged",
+                                [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
+    "ssd_scan_launch": ("ssd_scan",
+                        [_P] * 9 + [_I] * 5 + [_L] * 8 + [_I, _P]),
+    "router_score_launch": ("router_score", [_P] * 4 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -120,14 +126,15 @@ def library(name: str) -> ctypes.CDLL:
         if not _lib_path(name).exists():
             build_all()
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, (source, argtypes) in SIGNATURES.items():
+            if source == name:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _libs[name] = lib
         return lib
 
 
-def entry(name: str):
-    """The C launch function of csrc/<name>.cu."""
-    return getattr(library(name), SIGNATURES[name][0])
+def entry(fn_name: str):
+    """The C launch function `fn_name`, from the library of its source."""
+    return getattr(library(SIGNATURES[fn_name][0]), fn_name)

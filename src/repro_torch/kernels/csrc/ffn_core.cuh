@@ -1,8 +1,9 @@
-// Tiled GLU-FFN core shared by the three expert/FFN kernels of the port.
+// Tiled GLU-FFN core shared by the four expert/FFN kernels of the port.
 //
 // Replaces the fused Pallas bodies of repro/kernels/swiglu.py (swiglu_ffn),
-// repro/kernels/moe_gmm.py (moe_gmm_ragged) and repro/kernels/moe_gather.py
-// (moe_gather). All three compute, per output row r with expert e(r):
+// repro/kernels/moe_gmm.py (moe_gmm_ragged and moe_gmm) and
+// repro/kernels/moe_gather.py (moe_gather). All four compute, per output
+// row r with expert e(r):
 //
 //     h[r]   = round_T(act(x[a(r)] . Wg[e]) * (x[a(r)] . Wu[e]))   fp32 sums
 //     out[r] = round_T(h[r] . Wd[e])                               fp32 sums
@@ -13,6 +14,10 @@
 //   kPerRow     e = eidx[r],               a(r) = r / top_k (moe_gather);
 //               e == num_experts is the sentinel: no loads, no FLOPs, and
 //               the down stage writes an exact zero row.
+//   kCapacity   e = r / C,                 a(r) = r        (moe_gmm: dense
+//               (E, C, d) capacity buffers, C = block_c). Tiles never
+//               straddle experts: the grid runs E x ceil(C / BM) row tiles
+//               and each masks its local rows >= C.
 //
 // Design. The TPU kernels carry the down-projection sum across a sequential
 // grid axis in VMEM scratch. Hopper blocks run in no order, so the port runs
@@ -34,7 +39,7 @@
 
 namespace ffn {
 
-enum RowRule { kDense = 0, kTileOwner = 1, kPerRow = 2 };
+enum RowRule { kDense = 0, kTileOwner = 1, kPerRow = 2, kCapacity = 3 };
 enum Act { kSwiglu = 0, kGeglu = 1 };
 enum DType { kF32 = 0, kBF16 = 1 };
 
@@ -71,18 +76,26 @@ __device__ __forceinline__ float act_fn(float g, int act) {
 // One BM x BN tile of stage 1 (GLU = true: two banks, act epilogue writes h)
 // or stage 2 (GLU = false: one bank, plain epilogue writes out). All rows of
 // a tile share one expert: BM == block_c under kTileOwner, BM == 1
-// under kPerRow.
+// under kPerRow, and under kCapacity a tile covers BM rows of one expert's
+// C (rows from row_end on belong to the next expert and are masked).
 template <typename T, int BM, int BN, int BK, int TM, int TN, bool GLU>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     ffn_tile(const Args p) {
   constexpr int NT = (BM / TM) * (BN / TN);
-  const int row0 = blockIdx.x * BM;
+  int row0 = blockIdx.x * BM;
+  int row_end = p.rows;
   const int col0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
 
   int e = 0;
   if (p.rule == kTileOwner) e = p.ids[row0 / p.block_c];
   else if (p.rule == kPerRow) e = p.ids[row0];
+  else if (p.rule == kCapacity) {
+    const int tiles = (p.block_c + BM - 1) / BM;  // row tiles per expert
+    e = blockIdx.x / tiles;
+    row0 = e * p.block_c + (blockIdx.x % tiles) * BM;
+    row_end = (e + 1) * p.block_c;
+  }
   T* C = static_cast<T*>(p.c);
   if (e < 0 || e >= p.num_experts) {
     // sentinel (dead) row: stage 1 leaves h unwritten (stage 2 never reads
@@ -117,7 +130,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       const int r = i / BK, kk = i % BK;
       const int row = row0 + r, k = k0 + kk;
       float v = 0.f;
-      if (row < p.rows && k < p.K) {
+      if (row < row_end && k < p.K) {
         const int arow = (GLU && p.rule == kPerRow) ? row / p.top_k : row;
         v = to_f(A[(size_t)arow * p.K + k]);
       }
@@ -158,7 +171,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int col = col0 + tx + j * (BN / TN);
-      if (row < p.rows && col < p.N) {
+      if (row < row_end && col < p.N) {
         const float v = GLU ? act_fn(acc0[i][j], p.act) * acc1[i][j]
                             : acc0[i][j];
         C[(size_t)row * p.N + col] = from_f<T>(v);
@@ -179,7 +192,11 @@ cudaError_t launch_stage(const Args& p, cudaStream_t stream) {
     dim3 grid(p.rows, (p.N + kRowBN - 1) / kRowBN);
     ffn_tile<T, 1, kRowBN, kRowBK, 1, 1, GLU><<<grid, kRowBN, 0, stream>>>(p);
   } else {
-    dim3 grid((p.rows + kBM - 1) / kBM, (p.N + kBN - 1) / kBN);
+    const int row_tiles =
+        p.rule == kCapacity
+            ? p.num_experts * ((p.block_c + kBM - 1) / kBM)
+            : (p.rows + kBM - 1) / kBM;
+    dim3 grid(row_tiles, (p.N + kBN - 1) / kBN);
     ffn_tile<T, kBM, kBN, kBK, kTM, kTN, GLU>
         <<<grid, (kBM / kTM) * (kBN / kTN), 0, stream>>>(p);
   }

@@ -50,7 +50,7 @@ def moe_gather_cuda(xf: torch.Tensor, eidx: torch.Tensor, wg: torch.Tensor,
     check_ids(eidx, n, dev)
     h = torch.empty((n, m), dtype=xf.dtype, device=dev)
     out = torch.empty((n, d), dtype=xf.dtype, device=dev)
-    err = build.entry("moe_gather")(
+    err = build.entry("moe_gather_launch")(
         xf.data_ptr(), eidx.data_ptr(), wg.data_ptr(), wu.data_ptr(),
         wd.data_ptr(), h.data_ptr(), out.data_ptr(), n, d, m, e, top_k, dt,
         act_code(activation), stream_ptr(dev))

@@ -1,10 +1,17 @@
-"""Grouped routed-expert FFN over the ragged, block-aligned layout.
+"""Grouped routed-expert FFNs: the ragged layout and dense capacity buffers.
 
-Port of the Pallas kernel ``repro/kernels/moe_gmm.py::moe_gmm_ragged``:
-xp (P, d) holds expert-sorted rows, every (block_c, d) row tile belongs to
-one expert ``owner[tile]``, and each tile runs the fused GLU FFN with its
-owner's weights. The CUDA kernel is ``csrc/moe_gmm.cu`` over the shared core
-``csrc/ffn_core.cuh``; the plain version below repeats its arithmetic.
+Port of the two Pallas kernels of ``repro/kernels/moe_gmm.py``:
+
+* ``moe_gmm_ragged``: xp (P, d) holds expert-sorted rows, every (block_c,
+  d) row tile belongs to one expert ``owner[tile]``, and each tile runs the
+  fused GLU FFN with its owner's weights;
+* ``moe_gmm``: dense (E, C, d) capacity buffers, row block e runs expert
+  e's GLU FFN (the bounded-buffer path of ``core.experts``).
+
+Both CUDA kernels are entry points of ``csrc/moe_gmm.cu`` over the shared
+core ``csrc/ffn_core.cuh``; the plain versions below repeat their
+arithmetic: g and u in fp32, h rounded to the input dtype, the down product
+summed in fp32 and cast once.
 """
 from __future__ import annotations
 
@@ -52,9 +59,47 @@ def moe_gmm_ragged_cuda(xp: torch.Tensor, owner: torch.Tensor,
     check_ids(owner, p // block_c, dev)
     h = torch.empty((p, m), dtype=xp.dtype, device=dev)
     out = torch.empty((p, d), dtype=xp.dtype, device=dev)
-    err = build.entry("moe_gmm")(
+    err = build.entry("moe_gmm_ragged_launch")(
         xp.data_ptr(), owner.data_ptr(), wg.data_ptr(), wu.data_ptr(),
         wd.data_ptr(), h.data_ptr(), out.data_ptr(), p, d, m, e, block_c,
         dt, act_code(activation), stream_ptr(dev))
     raise_on_error(err, "moe_gmm_ragged")
+    return out
+
+
+def moe_gmm_plain(xbuf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                  wd: torch.Tensor, activation: str = "swiglu"
+                  ) -> torch.Tensor:
+    """xbuf: (E, C, d); wg/wu: (E, d, m); wd: (E, m, d) -> (E, C, d) in
+    xbuf's dtype."""
+    x = xbuf.float()
+    g = torch.bmm(x, wg.float())
+    u = torch.bmm(x, wu.float())
+    h = (act(activation)(g) * u).to(xbuf.dtype)
+    return torch.bmm(h.float(), wd.float()).to(xbuf.dtype)
+
+
+def moe_gmm_cuda(xbuf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                 wd: torch.Tensor, activation: str = "swiglu"
+                 ) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream. Any C and m: the
+    kernel masks the rows past C in each expert's last row tile and the
+    columns past m, so nothing is padded."""
+    dt, dev = check_float_operands(xbuf, wg, wu, wd)
+    if xbuf.dim() != 3:
+        raise ValueError(f"xbuf must be (E, C, d); got {tuple(xbuf.shape)}")
+    e, c, d = xbuf.shape
+    m = wg.shape[-1]
+    if wg.shape != (e, d, m) or wu.shape != (e, d, m) or \
+            wd.shape != (e, m, d):
+        raise ValueError(f"banks wg {tuple(wg.shape)}, wu {tuple(wu.shape)},"
+                         f" wd {tuple(wd.shape)} do not match xbuf "
+                         f"{tuple(xbuf.shape)}")
+    h = torch.empty((e, c, m), dtype=xbuf.dtype, device=dev)
+    out = torch.empty((e, c, d), dtype=xbuf.dtype, device=dev)
+    err = build.entry("moe_gmm_launch")(
+        xbuf.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+        h.data_ptr(), out.data_ptr(), e, c, d, m, dt, act_code(activation),
+        stream_ptr(dev))
+    raise_on_error(err, "moe_gmm")
     return out

@@ -1,7 +1,9 @@
 """Wrappers around the port's kernels: device routing and launch counts.
 
 Port of ``repro/kernels/ops.py`` for the kernels on the convert-and-serve
-path, the serving engine and the Mamba2 SSD scan. Each wrapper routes by
+path, the serving engine, the Mamba2 SSD scan, the bounded-buffer expert
+path (``moe_gmm``) and the CMoE router's scoring (``router_score``). Each
+wrapper routes by
 the device of its operands:
 
   * a CPU tensor runs the kernel's plain PyTorch version;
@@ -20,17 +22,20 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.moe_gather import moe_gather_cuda, moe_gather_plain
-from repro_torch.kernels.moe_gmm import (CUDA_TILE_ROWS, moe_gmm_ragged_cuda,
+from repro_torch.kernels.moe_gmm import (CUDA_TILE_ROWS, moe_gmm_cuda,
+                                         moe_gmm_plain, moe_gmm_ragged_cuda,
                                          moe_gmm_ragged_plain)
 from repro_torch.kernels.paged_attention import (mla_paged_decode_cuda,
                                                  mla_paged_decode_plain,
                                                  paged_attn_decode_cuda,
                                                  paged_attn_decode_plain)
+from repro_torch.kernels.router_score import (router_score_cuda,
+                                              router_score_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 from repro_torch.kernels.swiglu import swiglu_ffn_cuda, swiglu_ffn_plain
 
 KERNELS = ("swiglu_ffn", "moe_gmm_ragged", "moe_gather", "paged_attn_decode",
-           "mla_paged_decode", "ssd_scan")
+           "mla_paged_decode", "ssd_scan", "moe_gmm", "router_score")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 # Row tile of the ragged expert layout ``moe_gmm_ragged`` consumes: one
@@ -178,4 +183,28 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         return ssd_scan_plain(xh, dt, b, c, a_log, d_skip, chunk, h0=h0)
     out = ssd_scan_cuda(xh, dt, b, c, a_log, d_skip, h0=h0)
     LAUNCHES["ssd_scan"] += 1
+    return out
+
+
+def moe_gmm(xbuf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+            wd: torch.Tensor, *, activation: str = "swiglu") -> torch.Tensor:
+    """xbuf: (E, C, d) dense capacity buffers; wg/wu: (E, d, m); wd: (E, m,
+    d) -> (E, C, d) in xbuf's dtype. Unlike the JAX wrapper, nothing is
+    padded: the CUDA kernel masks ragged C and m itself."""
+    if not _route(xbuf):
+        return moe_gmm_plain(xbuf, wg, wu, wd, activation)
+    out = moe_gmm_cuda(xbuf.contiguous(), wg, wu, wd, activation)
+    LAUNCHES["moe_gmm"] += 1
+    return out
+
+
+def router_score(x: torch.Tensor, wg_r: torch.Tensor, wu_r: torch.Tensor, *,
+                 activation: str = "swiglu") -> torch.Tensor:
+    """x: (T, d); wg_r/wu_r: (d, N_r) -> scores (T, N_r) float32, g and u
+    unrounded (``ref.router_score_ref``). Unlike the JAX wrapper, T is not
+    padded to a block multiple: the CUDA kernel masks the ragged block."""
+    if not _route(x):
+        return router_score_plain(x, wg_r, wu_r, activation)
+    out = router_score_cuda(x.contiguous(), wg_r, wu_r, activation)
+    LAUNCHES["router_score"] += 1
     return out

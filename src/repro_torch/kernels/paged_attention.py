@@ -97,7 +97,7 @@ def paged_attn_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                              f"tensor on {dev}; got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     out = torch.empty_like(q)
-    err = build.entry("paged_attn")(
+    err = build.entry("paged_attn_decode_launch")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         pos.data_ptr(), out.data_ptr(), b, kh, grp, hd, table.shape[1], bs,
         int(window), float(scale), dt, stream_ptr(dev))
@@ -165,7 +165,7 @@ def mla_paged_decode_cuda(q_abs: torch.Tensor, q_pe: torch.Tensor,
                              f"tensor on {dev}; got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     out = torch.empty_like(q_abs)
-    err = build.entry("mla_paged")(
+    err = build.entry("mla_paged_decode_launch")(
         q_abs.data_ptr(), q_pe.data_ptr(), cc_pool.data_ptr(),
         cp_pool.data_ptr(), table.data_ptr(), pos.data_ptr(), out.data_ptr(),
         b, h, r, dr, table.shape[1], bs, float(scale), dt, stream_ptr(dev))

@@ -148,7 +148,7 @@ def ssd_scan_cuda(xh: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     h0 = None if h0 is None else h0.contiguous()
     y = torch.empty((bsz, s, nh, hp), dtype=torch.float32, device=dev)
     h_fin = torch.empty((bsz, nh, hp, n), dtype=torch.float32, device=dev)
-    err = build.entry("ssd_scan")(
+    err = build.entry("ssd_scan_launch")(
         xh.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
         a_log.data_ptr(), d_skip.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(),

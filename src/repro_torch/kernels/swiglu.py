@@ -39,7 +39,7 @@ def swiglu_ffn_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                          f"wu {tuple(wu.shape)}, wd {tuple(wd.shape)}")
     h = torch.empty((t, f), dtype=x.dtype, device=dev)
     out = torch.empty((t, d), dtype=x.dtype, device=dev)
-    err = build.entry("swiglu")(
+    err = build.entry("swiglu_ffn_launch")(
         x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
         h.data_ptr(), out.data_ptr(), t, d, f, dt, act_code(activation),
         stream_ptr(dev))

@@ -75,6 +75,16 @@ def init_stacked(make, n: int):
     return stacked
 
 
+def layer_windows(cfg: ModelConfig) -> list[int]:
+    """Per-layer sliding window (0 = full). gemma3: every (r+1)-th layer is
+    global, the others take ``cfg.sliding_window``."""
+    if cfg.local_global_ratio > 0:
+        r = cfg.local_global_ratio
+        return [0 if (i + 1) % (r + 1) == 0 else cfg.sliding_window
+                for i in range(cfg.num_layers)]
+    return [cfg.sliding_window] * cfg.num_layers
+
+
 def hybrid_attn_layers(cfg: ModelConfig) -> tuple[list, list, int]:
     """(is_attn (L,), app_idx (L,), num_apps) for zamba2-style stacks: the
     shared attention block runs after every ``hybrid_attn_every``-th layer,
@@ -173,9 +183,8 @@ class Model:
         else:
             start = int(cache_pos) if cache_pos is not None else 0
             positions = torch.arange(start, start + seq, device=x.device)
-        window = cfg.sliding_window
         base = BlockCtx(positions=positions, cache=None, cache_pos=cache_pos,
-                        window=window, causal=True, use_rope=True,
+                        window=0, causal=True, use_rope=True,
                         use_kernel=self.use_kernel, capture=capture,
                         phase=phase,
                         backend=backend if backend is not None
@@ -188,11 +197,12 @@ class Model:
         _, block_fn = B.BLOCKS[self.kind]
         taps = []
         dropped = []
-        for li in range(cfg.num_layers):
+        for li, window in enumerate(layer_windows(cfg)):
             p = tree_map(lambda a: a[li], blocks)
             cache_l = None if caches is None else \
                 (caches[0][li], caches[1][li])
-            x, _, aux = block_fn(x, p, cfg, base._replace(cache=cache_l))
+            x, _, aux = block_fn(x, p, cfg, base._replace(cache=cache_l,
+                                                          window=window))
             if capture:
                 taps.append(aux["ffn_in"])
             if "dropped" in aux:

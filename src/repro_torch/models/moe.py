@@ -1,10 +1,12 @@
 """Pretrained-MoE FFN block (deepseek-v2) on the routed-expert engine.
 
 Port of the single-device paths of ``repro/models/moe.py``: the top-k
-softmax router with the aux-loss-free balance bias, the shared experts, and
+softmax router with the aux-loss-free balance bias, the shared experts,
 dispatch through ``repro_torch.core.experts.routed_experts``, whose backends
-are drop-free. The sharded ``moe_ffn_local`` and the capacity-buffer
-``expert_ffn`` are not ported yet (ROADMAP Queue 1 item 13, Queue 2).
+are drop-free, and the capacity-buffer ``expert_ffn`` with the engine's
+capacity machinery re-exported, as the reference has them. The sharded
+``moe_ffn_local`` (the reference's caller of that machinery, with
+``expert_capacity``) is not ported yet (ROADMAP Queue 1, sharded paths).
 """
 from __future__ import annotations
 
@@ -12,9 +14,23 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.experts import dropped_pairs, routed_experts
+# Re-exports, as the reference keeps them importable from here.
+from repro_torch.core.experts import (DispatchInfo,  # noqa: F401
+                                      assign_positions, combine, dispatch,
+                                      dropped_pairs, grouped_expert_ffn,
+                                      routed_experts)
 from repro_torch.core.router import top_k_lower_first
 from repro_torch.models.layers import gelu, lecun, matmul, swish
+
+
+def expert_ffn(xbuf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+               wd: torch.Tensor, activation: str, use_kernel: bool = False
+               ) -> torch.Tensor:
+    """Batched expert FFN: (E, C, d) with per-expert weights (E, d, m).
+    Thin glu-schema wrapper over the engine's ``grouped_expert_ffn`` (the
+    CUDA ``moe_gmm`` under ``use_kernel`` on a CUDA tensor)."""
+    return grouped_expert_ffn(xbuf, {"wg": wg, "wu": wu, "wd": wd},
+                              activation, use_kernel=use_kernel)
 
 
 def moe_gate(xf: torch.Tensor, p: dict, moe):

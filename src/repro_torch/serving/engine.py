@@ -96,6 +96,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from collections import Counter, deque
 from typing import Optional
 
@@ -372,6 +373,16 @@ def check_servable(cfg, kind) -> None:
             f"family; family={cfg.family!r} kind={kind!r} is not ported")
 
 
+def _weak_hook(method):
+    """A plain function that calls the bound ``method`` through a weak
+    reference to its object."""
+    ref = weakref.WeakMethod(method)
+
+    def hook(*args, **kwargs):
+        return ref()(*args, **kwargs)
+    return hook
+
+
 class ServingEngine:
     """Continuous-batching engine over a slot KV cache.
 
@@ -516,11 +527,15 @@ class ServingEngine:
                     raise ValueError(
                         f"request {r.rid}: needs {need} blocks, pool has "
                         f"{self.kv.num_blocks} — it could never admit")
-            self.scheduler.admission_gate = self._paged_gate
+            # the scheduler the engine owns holds these hooks weakly: a
+            # bound method would close a cycle engine -> scheduler ->
+            # engine, and a finished engine's model would stay allocated
+            # until the garbage collector runs
+            self.scheduler.admission_gate = _weak_hook(self._paged_gate)
             self.scheduler.prefix_skip = \
-                self._prefix_skip if self.prefix_reuse else None
+                _weak_hook(self._prefix_skip) if self.prefix_reuse else None
             self.scheduler.on_admit = \
-                self._on_admit if self.prefix_reuse else None
+                _weak_hook(self._on_admit) if self.prefix_reuse else None
         else:
             self.kv = SlotKVCache(self.model, self.max_slots, self.max_len)
             self.scheduler.admission_gate = None

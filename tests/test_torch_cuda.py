@@ -301,3 +301,91 @@ def test_cuda_ssd_scan_rejects_bad_operands():
                       torch.zeros((1, 4, 512), device=dev),
                       torch.zeros((1, 4, 512), device=dev),
                       torch.zeros(1, device=dev), torch.ones(1, device=dev))
+
+
+def _close(got, ref, dt):
+    tol = (1e-4 if dt == torch.float32 else 2e-2) * \
+        ref.float().abs().max().item()
+    assert torch.isfinite(got).all()
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,d,m,act", [
+    (160, 8, 512, 96, "swiglu"),     # deepseek-v2's expert count, C = 8
+    (5, 1, 96, 72, "swiglu"),        # C = 1
+    (3, 70, 96, 200, "geglu"),       # C and m not multiples of the tile
+    (2, 128, 64, 64, "swiglu")])     # two full row tiles per expert
+def test_cuda_moe_gmm_matches_plain(dtype, e, c, d, m, act):
+    """moe_gmm over dense (E, C, d) buffers against its plain version, no
+    padding of C or m; one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.moe_gmm import moe_gmm_plain
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+    xbuf = rnd((e, c, d))
+    wg, wu = rnd((e, d, m), d ** -0.5), rnd((e, d, m), d ** -0.5)
+    wd = rnd((e, m, d), m ** -0.5)
+    tops.reset_launches()
+    got = tops.moe_gmm(xbuf, wg, wu, wd, activation=act)
+    ref = moe_gmm_plain(xbuf, wg, wu, wd, act)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["moe_gmm"] == 1
+    assert got.shape == (e, c, d) and got.dtype == dt
+    _close(got, ref, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,d,nr,act", [
+    (4, 1024, 5, "swiglu"),          # qwen1.5-0.5b converted, decode
+    (512, 1024, 5, "swiglu"),        # qwen1.5-0.5b, the calibration batch
+    (128, 4096, 13, "swiglu"),       # llama2-7b's widest router
+    (100, 4096, 5, "geglu")])        # T not a multiple of any block
+def test_cuda_router_score_matches_plain(dtype, t, d, nr, act):
+    """router_score against its plain version (f32 out, g and u unrounded);
+    one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.router_score import router_score_plain
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    x = torch.randn((t, d), generator=g, device=dev).to(dt)
+    wg = (torch.randn((d, nr), generator=g, device=dev) * d ** -0.5).to(dt)
+    wu = (torch.randn((d, nr), generator=g, device=dev) * d ** -0.5).to(dt)
+    tops.reset_launches()
+    got = tops.router_score(x, wg, wu, activation=act)
+    ref = router_score_plain(x, wg, wu, act)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["router_score"] == 1
+    assert got.shape == (t, nr) and got.dtype == torch.float32
+    _close(got, ref, dt)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_gmm_and_router_score_reject_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    xb = torch.randn(2, 4, 32, device=dev)
+    w = torch.randn(2, 32, 32, device=dev)
+    with pytest.raises(ValueError):                   # a bank of E = 3
+        tops.moe_gmm(xb, torch.randn(3, 32, 32, device=dev), w, w)
+    with pytest.raises(TypeError):
+        tops.moe_gmm(xb, w, w, w.bfloat16())
+    x = torch.randn(8, 32, device=dev)
+    with pytest.raises(ValueError):                   # 17 router columns
+        wide = torch.randn(32, 17, device=dev)
+        tops.router_score(x, wide, wide)
+    with pytest.raises(ValueError):
+        tops.router_score(x, torch.randn(32, 5), torch.randn(32, 5))

@@ -1,4 +1,4 @@
-"""The port's three kernels: plain versions against the JAX package's
+"""The port's first three kernels: plain versions against the JAX package's
 Pallas kernels (interpret mode, as the JAX tests run them on the CPU), and
 the CPU routing of the wrappers. The CUDA kernels themselves are tested on
 a GPU in test_torch_cuda.py.
@@ -13,7 +13,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.moe_gather import moe_gather_plain
-from repro_torch.kernels.moe_gmm import moe_gmm_ragged_plain
+from repro_torch.kernels.moe_gmm import moe_gmm_plain, moe_gmm_ragged_plain
 from repro_torch.kernels.swiglu import swiglu_ffn_plain
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -121,6 +121,14 @@ def test_wrappers_route_cpu_tensors_to_plain_without_counting():
     y, h = tops.ssd_scan(xh, dt, bc, bc, torch.zeros(3), torch.ones(3),
                          chunk=4, h0=h0)
     assert y.shape == (2, 9, 3, 4) and h.shape == (2, 3, 4, 8)
+    xb = torch.from_numpy(_rand(rng, (3, 5, 16)))
+    gm = tops.moe_gmm(xb, *_t(bg, bu, bd))
+    np.testing.assert_array_equal(
+        gm.numpy(), moe_gmm_plain(xb, *_t(bg, bu, bd)).numpy())
+    s = tops.router_score(torch.from_numpy(_rand(rng, (7, 16))),
+                          *_t(_rand(rng, (16, 5)), _rand(rng, (16, 5))))
+    assert s.shape == (7, 5) and s.dtype == torch.float32
     assert tops.LAUNCHES == {"swiglu_ffn": 0, "moe_gmm_ragged": 0,
                              "moe_gather": 0, "paged_attn_decode": 0,
-                             "mla_paged_decode": 0, "ssd_scan": 0}
+                             "mla_paged_decode": 0, "ssd_scan": 0,
+                             "moe_gmm": 0, "router_score": 0}

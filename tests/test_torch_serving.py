@@ -10,6 +10,8 @@ pairs and a clean pool audit. Then truncation, pool exhaustion, the CLI,
 and one run against the JAX engine on the same weights and requests.
 """
 import dataclasses
+import gc
+import weakref
 
 import jax
 import numpy as np
@@ -359,3 +361,33 @@ def test_converted_moe_block_raises():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         model.prefill(params, {"tokens": torch.zeros((1, 4),
                                                      dtype=torch.long)})
+
+
+@pytest.mark.parametrize("kw", [dict(paged=False),
+                                dict(paged=True, block_size=8),
+                                dict(paged=True, block_size=8,
+                                     prefix_reuse=True)],
+                         ids=["contiguous", "paged", "prefix_reuse"])
+def test_finished_engine_frees_its_model_without_gc(kw):
+    """With the collector off, dropping the last reference to a finished
+    engine frees its model: the engine holds no reference cycle (the
+    scheduler's admission, prefix-skip and on-admit hooks are weak)."""
+    cfg = override(get_smoke_config("qwen1.5-0.5b"), dtype="float32")
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    reqs = _mix(cfg.vocab_size, prefix_groups=[14] if "prefix_reuse" in kw
+                else None)
+    enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        engine = ServingEngine(model, params, max_slots=3, max_len=40,
+                               prefill_bucket=8, **kw)
+        rep = engine.run(reqs)
+        assert all(r.done for r in rep.requests)
+        alive = weakref.ref(model)
+        del engine, rep, model, params
+        assert alive() is None
+    finally:
+        if enabled:
+            gc.enable()
