@@ -6,7 +6,7 @@
 
 Phases (any failure raises and exits nonzero; no phase catches its own):
   1. device and build: the card's name and power limit (nvidia-smi), then
-     the eight CUDA kernels built from the seven sources in
+     the ten CUDA kernels built from the nine sources in
      ``src/repro_torch/kernels/csrc`` with nvcc, one process per source,
      all started together;
   2. each kernel against its plain PyTorch version on the card at the shapes
@@ -66,7 +66,19 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      (c) zamba2-1.2b in bfloat16 through the CLI's static entry point
      (prefill 4 x 32, 16 generated), launch counts zeroed before each and
      read after: ssd_scan once per layer per prefill, and zamba2's shared
-     block's swiglu_ffn once per application per prefill and decode step.
+     block's swiglu_ffn once per application per prefill and decode step;
+  7. the attention pair at llama2-7b's published widths (32 heads of 128),
+     depth cut to 2 layers, once in float32 and once in bfloat16, through
+     the reference's entry points ops.flash_attention and ops.flash_decode
+     (neither has a model caller, so none is added), launch counts zeroed
+     before and read after: (a) layer 0's q, k, v of a 1 x 4096 prompt
+     (gqa_project_qkv and apply_rope), causal against the plain version
+     and the port's chunked_attention, non-causal with T = 4096 - 37, and a
+     causal call at the static main path's shape (4 x 32 tokens, 16 heads
+     of 64); (b) Model.prefill of 4 x 1024 tokens into a contiguous cache of
+     1100, one Model.decode_step, then layer 0's cache and the step's
+     post-RoPE query (BH 128, T 1100, pos 1024) against the plain version
+     and decode_attention; tolerances as in phase 2.
 Phase 2 also holds ssd_scan against its plain version (float32, and bf16
 inputs, |err| <= 1e-4 max|ref|: the arithmetic is float32 in both) at
 mamba2's prefill shape from a zero and a random state, a length that is
@@ -75,9 +87,15 @@ zamba2's widths, and times it at the prefill shape; moe_gmm at C = 8, 1,
 70 and 130 and at deepseek-v2's expert widths (E 160, d 5120, m 1536, C =
 8, where it is timed), and router_score at d 1024 / N_r 5 and d 4096 /
 N_r 5 and 13 for T of 4, 128, 512 and 100 (timed at T 512, d 1024, N_r
-5), each in float32 and bfloat16 with the tolerances above. Before each
-SSM model the memory still allocated is printed before and after a
-garbage collection.
+5), each in float32 and bfloat16 with the tolerances above;
+flash_attention at D 16, 64, 128 and 256 with S and T off the tiles, causal
+S > T, a non-causal ragged T and the static main path's shape (timed at
+llama2-7b's causal prefill, BH 32, S = T = 4096, D 128, beside
+scaled_dot_product_attention), and flash_decode at D 16 to 256 with pos 0,
+T - 1, >= T and < 0 (timed at phase 7's decode shape and a full 4096
+cache, beside scaled_dot_product_attention with a boolean mask). Before
+each SSM model and phase 7 the memory still allocated is printed before
+and after a garbage collection.
 Prints the kernels JSON line, then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -145,6 +163,22 @@ SSM_FWD = (2, 1024)        # Model.forward batch x tokens (phase 6a)
 SSD_MAIN = dict(b=BATCH, s=PROMPT, nh=32, hp=64, n=128)
 SSD_LONG = dict(b=2, s=2048, nh=32, hp=64, n=128)
 SSD_ZAMBA = dict(b=BATCH, s=PROMPT, nh=64, hp=64, n=64)
+
+# the attention pair (phase 7): llama2-7b at its published widths (32 heads
+# of 128), depth cut to 2 layers (only layer 0's attention is read); a
+# 1 x 4096 prefill (llama2's context length) and a decode step after a
+# 4 x 1024 prefill into a contiguous cache of 1100 (not a multiple of any
+# tile)
+LLAMA_ARCH = "llama2-7b"
+LLAMA_LAYERS = 2
+LLAMA_PREFILL = 4096
+LLAMA_RAGGED = 37          # the non-causal call drops the last 37 keys
+LLAMA_DECODE = dict(batch=4, prompt=1024, max_len=1100)
+# timed shapes (bf16): flash_attention at llama2-7b's prefill, causal;
+# flash_decode at phase 7's decode shape and at a full 4096 cache
+FA_MAIN = dict(bh=32, s=4096, t=4096, d=128)
+FD_MAIN = dict(bh=128, t=1100, d=128, pos=1024)
+FD_LONG = dict(bh=128, t=4096, d=128, pos=4095)
 
 
 def nvidia_smi() -> str:
@@ -338,6 +372,8 @@ def kernel_phase() -> dict:
     deepseek_expert_times(g, dev, records)
     records["moe_gmm"] = moe_gmm_phase(g, dev)
     records["router_score"] = router_score_phase(g, dev)
+    records["flash_attention"] = flash_attention_phase(g, dev)
+    records["flash_decode"] = flash_decode_phase(g, dev)
     for r in records.values():
         lib = "null" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
@@ -840,6 +876,143 @@ def router_score_phase(g, dev) -> dict:
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, dtype="bfloat16 x and weights, "
         "float32 scores", shape=f"T={t} d={d} N_r={nr}")
+
+
+def attention_work(bh, s, t, d, causal, itemsize) -> tuple[float, float]:
+    """(FLOPs, bytes) of one flash_attention call: 4 d FLOPs for each live
+    (query, key) pair (under the top-left causal mask query i sees min(i +
+    1, t) keys); q, k, v and out each moved once."""
+    pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
+    return 4.0 * bh * d * pairs, (2 * bh * s * d + 2 * bh * t * d) * itemsize
+
+
+def decode_work(bh, t, d, pos, itemsize) -> tuple[float, float]:
+    """(FLOPs, bytes) of one flash_decode call over its live keys (those
+    <= min(pos, t - 1); all t where pos < 0): their K and V rows, q, out
+    and pos each moved once."""
+    live = t if pos < 0 else min(pos, t - 1) + 1
+    return 4.0 * bh * d * live, (2 * bh * live * d + 2 * bh * d) * \
+        itemsize + 4
+
+
+def flash_attention_phase(g, dev) -> dict:
+    """flash_attention against its plain version in float32 and bfloat16 at
+    D 16, 64, 128 and 256: S and T not multiples of the kernel's 64 x 32
+    tiles, causal S > T and S < T, a non-causal ragged T, the static main
+    path's shape (4 x 32 tokens, qwen1.5-0.5b's 16 heads of 64) and
+    llama2-7b's causal prefill (32 heads, 4096 tokens, D 128); timed there
+    in bfloat16 beside its plain version, scaled_dot_product_attention
+    (is_causal: the top-left mask) and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    def case(bh, s, t, d, dtype):
+        return [torch.randn(shape, generator=g, device=dev).to(dtype)
+                for shape in ((bh, s, d), (bh, t, d), (bh, t, d))]
+
+    cases = [(3, 100, 100, 16, True), (2, 200, 130, 64, True),
+             (2, 75, 300, 128, True), (2, 100, 77, 128, False),
+             (2, 130, 130, 256, True), (2, 90, 41, 256, False),
+             (BATCH * 16, PROMPT, PROMPT, 64, True)]
+    for dt in (torch.float32, torch.bfloat16):
+        for bh, s, t, d, causal in cases:
+            q, k, v = case(bh, s, t, d, dt)
+            check(f"flash_attention BH={bh} S={s} T={t} D={d} "
+                  f"{'causal' if causal else 'full'}",
+                  ops.flash_attention(q, k, v, causal=causal),
+                  flash_attention_plain(q, k, v, causal), dt)
+    bh, s, t, d = (FA_MAIN[n] for n in ("bh", "s", "t", "d"))
+    bf = torch.bfloat16
+    flops, nbytes = attention_work(bh, s, t, d, True, 2)
+    sets = [case(bh, s, t, d, bf) for _ in range(n_sets(nbytes))]
+    err = check(f"flash_attention llama2-7b prefill BH={bh} S={s} D={d} "
+                f"causal", ops.flash_attention(*sets[0]),
+                flash_attention_plain(*sets[0]), bf)
+    ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v), sets,
+                 iters=10)
+    plain_ms = time_ms(lambda q, k, v: flash_attention_plain(q, k, v), sets,
+                       iters=10)
+    lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q[None], k[None], v[None], is_causal=True), sets, iters=10)
+    b_ms, b_by = bound(flops, nbytes, "bfloat16")
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:72", launches=None,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, dtype="bfloat16",
+        shape=f"BH={bh} S={s} T={t} D={d} causal")
+
+
+def flash_decode_phase(g, dev) -> dict:
+    """flash_decode against its plain version in float32 and bfloat16 at
+    D 16, 64, 128 and 256: T not a multiple of the kernel's 32-key tile,
+    pos 0, pos = T - 1, pos >= T, a negative pos (every key masked: the
+    oracle's uniform average) and phase 7's decode shape; timed there and
+    at a full 4096 cache in bfloat16 beside its plain version,
+    scaled_dot_product_attention with the mask kpos <= pos, and its bound.
+    pos reaches the kernel as a device int32, as on the main path."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+
+    def case(bh, t, d, pos, dtype):
+        q, k, v = [torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((bh, 1, d), (bh, t, d), (bh, t, d))]
+        keep = (torch.arange(t, device=dev) <= pos)[None]   # (L 1, S t)
+        return [q, k, v, torch.full((1,), pos, dtype=torch.int32,
+                                    device=dev), keep]
+
+    cases = [(4, 100, 16, 63), (3, 70, 64, 0), (2, 100, 128, 99),
+             (2, 100, 128, 120), (2, 40, 128, -1), (2, 300, 256, 200),
+             tuple(FD_MAIN.values())]
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for bh, t, d, pos in cases:
+            q, k, v, p_d, _ = case(bh, t, d, pos, dt)
+            e = check(f"flash_decode BH={bh} T={t} D={d} pos={pos}",
+                      ops.flash_decode(q, k, v, p_d),
+                      flash_decode_plain(q, k, v, pos), dt)
+            if dt == torch.bfloat16 and (bh, t, d, pos) == \
+                    tuple(FD_MAIN.values()):
+                err = e
+
+    def timed(shape):
+        bh, t, d, pos = shape.values()
+        flops, nbytes = decode_work(bh, t, d, pos, 2)
+        sets = [case(bh, t, d, pos, torch.bfloat16)
+                for _ in range(n_sets(nbytes))]
+        ms = time_ms(lambda q, k, v, p_d, keep: ops.flash_decode(
+            q, k, v, p_d), sets)
+        plain_ms = time_ms(lambda q, k, v, p_d, keep: flash_decode_plain(
+            q, k, v, p_d), sets)
+        lib_ms = time_ms(lambda q, k, v, p_d, keep:
+                         F.scaled_dot_product_attention(
+                             q[None], k[None], v[None], attn_mask=keep),
+                         sets)
+        return ms, plain_ms, lib_ms, bound(flops, nbytes, "bfloat16")
+
+    ms, plain_ms, lib_ms, (b_ms, b_by) = timed(FD_MAIN)
+    lms, lplain, llib, (lb_ms, lb_by) = timed(FD_LONG)
+    print(f"[time] flash_decode full cache {FD_LONG}: {lms:.4f} ms (bound "
+          f"{lb_ms:.4f} ms, {lb_by}), plain {lplain:.4f} ms, library "
+          f"{llib:.4f} ms")
+    return dict(
+        name="flash_decode", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_decode.cu",
+        replaces="src/repro/kernels/flash_decode.py:65", launches=None,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, dtype="bfloat16",
+        shape=" ".join(f"{k}={v}" for k, v in FD_MAIN.items()),
+        long_context=dict(shape=" ".join(f"{k}={v}" for k, v in
+                                         FD_LONG.items()),
+                          ms=lms, plain_ms=lplain, library_ms=llib,
+                          bound_ms=lb_ms, bound_by=lb_by))
 
 
 def f32_agreement():
@@ -1493,6 +1666,149 @@ def ssm_serving(arch: str) -> dict:
     return launches
 
 
+def layer0_qkv(params, cfg, tokens, positions):
+    """Layer 0's normed input of `tokens` (its embeddings, as the stack
+    starts) through the port's gqa_project_qkv and apply_rope: q, k, v of
+    (B, S, H, hd)."""
+    from repro_torch.models.attention import gqa_project_qkv
+    from repro_torch.models.layers import apply_rope, embed, rms_norm
+
+    x = rms_norm(embed(tokens, params["embed"]),
+                 params["blocks"]["norm1"][0], cfg.norm_eps)
+    p0 = {n: w[0] for n, w in params["blocks"]["attn"].items()}
+    q, k, v = gqa_project_qkv(x, p0, cfg)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def heads_flat(x):
+    """(B, S, H, hd) -> (B * H, S, hd), the attention kernels' layout."""
+    b, s, h, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
+
+
+def attention_pair() -> dict:
+    """Phase 7: the attention pair at llama2-7b's full width (32 heads of
+    128), through the reference's entry points ops.flash_attention and
+    ops.flash_decode, held against their plain versions and the port's own
+    static attention, once in float32 and once in bfloat16 on seeded random
+    weights, depth cut to LLAMA_LAYERS. (a) Layer 0's q, k, v of a 1 x 4096
+    prompt: causal against chunked_attention (what the static prefill
+    runs), then non-causal with the last LLAMA_RAGGED keys dropped; and a
+    causal call at the static main path's shape (4 x 32 tokens,
+    qwen1.5-0.5b's 16 heads of 64, seeded random). (b) Model.prefill of 4 x
+    1024 tokens into a contiguous cache of 1100, one Model.decode_step at
+    position 1024, then layer 0's cache as that step leaves it against the
+    step's post-RoPE layer-0 query (recomputed by the same functions; its k
+    is checked bitwise against the cache's new row), against
+    decode_attention. Launch counts are zeroed just before and read just
+    after. Returns them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import override
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import (chunked_attention,
+                                              decode_attention)
+
+    dev = torch.device("cuda")
+    base = get_config(LLAMA_ARCH)
+    print(f"[cut] {LLAMA_ARCH}: depth {base.num_layers} -> {LLAMA_LAYERS} "
+          f"layers (phase 7 reads only layer 0's attention); every width "
+          f"as published (d_model {base.d_model}, {base.num_heads} heads "
+          f"of {base.resolved_head_dim}, d_ff {base.d_ff}, vocab "
+          f"{base.vocab_size})")
+    free_device("phase 7")
+    rng = np.random.default_rng(7)
+    nb, npr, max_len = LLAMA_DECODE.values()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for dt in ("float32", "bfloat16"):
+        cfg = override(base, dtype=dt, num_layers=LLAMA_LAYERS)
+        model = build_model(cfg, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = model.init(gen)
+        tdt = getattr(torch, dt)
+
+        def held(what, got, plain, own):
+            e1 = check(f"phase 7 {what} vs plain", got, plain, tdt)
+            e2 = check(f"phase 7 {what} vs the port's own attention", got,
+                       own, tdt)
+            return e1, e2
+
+        with torch.no_grad():
+            # (a) prefill attention at 1 x 4096
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                (1, LLAMA_PREFILL)),
+                                   dtype=torch.long, device=dev)
+            q, k, v = layer0_qkv(params, cfg, toks,
+                                 torch.arange(LLAMA_PREFILL, device=dev))
+            qf, kf, vf = (heads_flat(a) for a in (q, k, v))
+            got = ops.flash_attention(qf, kf, vf, causal=True)
+            e = held(f"{dt} flash_attention causal {tuple(qf.shape)}", got,
+                     flash_attention_plain(qf, kf, vf, True),
+                     heads_flat(chunked_attention(q, k, v, causal=True)))
+            t_r = LLAMA_PREFILL - LLAMA_RAGGED
+            got = ops.flash_attention(qf, kf[:, :t_r], vf[:, :t_r],
+                                      causal=False)
+            held(f"{dt} flash_attention non-causal T={t_r}", got,
+                 flash_attention_plain(qf, kf[:, :t_r], vf[:, :t_r], False),
+                 heads_flat(chunked_attention(q, k[:, :t_r], v[:, :t_r],
+                                              causal=False)))
+            del q, k, v, qf, kf, vf, got
+            qs = [(torch.randn((BATCH, PROMPT, 16, 64), generator=gen,
+                               device=dev)).to(tdt) for _ in range(3)]
+            got = ops.flash_attention(*(heads_flat(a) for a in qs))
+            held(f"{dt} flash_attention static main path shape "
+                 f"{BATCH}x{PROMPT}, 16 heads of 64", got,
+                 flash_attention_plain(*(heads_flat(a) for a in qs)),
+                 heads_flat(chunked_attention(*qs, causal=True)))
+
+            # (b) one decode step against a contiguous cache
+            prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                   (nb, npr)),
+                                      dtype=torch.long, device=dev)
+            logits, cache = model.prefill(params, {"tokens": prompts},
+                                          max_len=max_len)
+            tok = torch.argmax(logits, -1)[:, None]
+            logits, cache = model.decode_step(params, tok, cache, npr)
+            if logits.shape != (nb, cfg.vocab_size) or \
+                    not torch.isfinite(logits).all():
+                raise AssertionError(f"phase 7 {dt}: bad decode logits "
+                                     f"{tuple(logits.shape)}")
+            kc, vc = cache[0][0], cache[1][0]       # layer 0: (B, T, KH, hd)
+            qd, kd, _ = layer0_qkv(params, cfg, tok,
+                                   torch.arange(npr, npr + 1, device=dev))
+            if not torch.equal(kc[:, npr], kd[:, 0].to(kc.dtype)):
+                raise AssertionError(f"phase 7 {dt}: the recomputed layer-0 "
+                                     f"k differs from the step's cache row")
+            qdf, kcf, vcf = heads_flat(qd), heads_flat(kc), heads_flat(vc)
+            got = ops.flash_decode(qdf, kcf, vcf, npr)
+            d_err = held(f"{dt} flash_decode {tuple(kcf.shape)} pos={npr}",
+                         got, flash_decode_plain(qdf, kcf, vcf, npr),
+                         heads_flat(decode_attention(qd, kc, vc, pos=npr)))
+        print(f"[phase 7 {dt}] {LLAMA_ARCH} prefill attention BH "
+              f"{base.num_heads} x {LLAMA_PREFILL}: max|err| vs plain "
+              f"{e[0]:.3e}, vs chunked_attention {e[1]:.3e}; decode BH "
+              f"{nb * base.num_heads} x T {max_len} pos {npr}: vs plain "
+              f"{d_err[0]:.3e}, vs decode_attention {d_err[1]:.3e}")
+        del model, params, cache, logits
+        free_device(f"phase 7 after {dt}")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    want = {"flash_attention": 6, "flash_decode": 2}
+    got = {n: launches[n] for n in want}
+    if got != want:
+        raise AssertionError(f"phase 7 launches {got}, want {want}")
+    print(f"[phase 7] launches {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1600,6 +1916,11 @@ def main(argv=None) -> int:
     launches = ssm_serving("zamba2-1.2b")
     records["ssd_scan"]["launches_zamba2"] = launches["ssd_scan"]
     records["swiglu_ffn"]["launches_zamba2"] = launches["swiglu_ffn"]
+
+    # phase 7: the attention pair at llama2-7b's full width
+    launches = attention_pair()
+    for name in ("flash_attention", "flash_decode"):
+        records[name]["launches"] = launches[name]
 
     print(smi)
     print(json.dumps({"kernels": list(records.values())}))

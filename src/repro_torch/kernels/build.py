@@ -22,8 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("swiglu", "moe_gmm", "moe_gather", "paged_attn", "mla_paged",
-           "ssd_scan", "router_score")
-HEADERS = ("ffn_core.cuh",)
+           "ssd_scan", "router_score", "flash_attention", "flash_decode")
+HEADERS = ("ffn_core.cuh", "convert.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -48,6 +48,9 @@ SIGNATURES = {
     "ssd_scan_launch": ("ssd_scan",
                         [_P] * 9 + [_I] * 5 + [_L] * 8 + [_I, _P]),
     "router_score_launch": ("router_score", [_P] * 4 + [_I] * 5 + [_P]),
+    "flash_attention_launch": ("flash_attention",
+                               [_P] * 4 + [_I] * 4 + [_F, _I, _I, _P]),
+    "flash_decode_launch": ("flash_decode", [_P] * 5 + [_I] * 3 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()

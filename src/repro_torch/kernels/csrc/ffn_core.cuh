@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "convert.cuh"
+
 namespace ffn {
 
 enum RowRule { kDense = 0, kTileOwner = 1, kPerRow = 2, kCapacity = 3 };
@@ -53,18 +55,8 @@ struct Args {
   int rule, block_c, top_k, act;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's cast
-}
+using cvt::from_f;
+using cvt::to_f;
 
 // swish(g) = g * sigmoid(g); gelu is the tanh form, jax.nn.gelu's default
 __device__ __forceinline__ float act_fn(float g, int act) {

@@ -2,9 +2,10 @@
 
 Port of ``repro/kernels/ops.py`` for the kernels on the convert-and-serve
 path, the serving engine, the Mamba2 SSD scan, the bounded-buffer expert
-path (``moe_gmm``) and the CMoE router's scoring (``router_score``). Each
-wrapper routes by
-the device of its operands:
+path (``moe_gmm``), the CMoE router's scoring (``router_score``) and the
+two attention kernels with no model caller (``flash_attention``,
+``flash_decode``): every Pallas entry point of the JAX package. Each
+wrapper routes by the device of its operands:
 
   * a CPU tensor runs the kernel's plain PyTorch version;
   * a CUDA tensor launches the hand-written CUDA kernel, or raises.
@@ -21,6 +22,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
+from repro_torch.kernels.flash_decode import (flash_decode_cuda,
+                                              flash_decode_plain)
 from repro_torch.kernels.moe_gather import moe_gather_cuda, moe_gather_plain
 from repro_torch.kernels.moe_gmm import (CUDA_TILE_ROWS, moe_gmm_cuda,
                                          moe_gmm_plain, moe_gmm_ragged_cuda,
@@ -35,7 +40,8 @@ from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 from repro_torch.kernels.swiglu import swiglu_ffn_cuda, swiglu_ffn_plain
 
 KERNELS = ("swiglu_ffn", "moe_gmm_ragged", "moe_gather", "paged_attn_decode",
-           "mla_paged_decode", "ssd_scan", "moe_gmm", "router_score")
+           "mla_paged_decode", "ssd_scan", "moe_gmm", "router_score",
+           "flash_attention", "flash_decode")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 # Row tile of the ragged expert layout ``moe_gmm_ragged`` consumes: one
@@ -207,4 +213,39 @@ def router_score(x: torch.Tensor, wg_r: torch.Tensor, wu_r: torch.Tensor, *,
         return router_score_plain(x, wg_r, wu_r, activation)
     out = router_score_cuda(x.contiguous(), wg_r, wu_r, activation)
     LAUNCHES["router_score"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (BH, S, D); k/v: (BH, T, D) -> (BH, S, D), ``ref.
+    flash_attention_ref``'s function (top-left causal mask). Unlike the JAX
+    wrapper, nothing is padded and nothing falls back: the CUDA kernel
+    masks ragged S and T itself, so the causal S > T case follows the
+    oracle and the non-causal ragged case runs the kernel."""
+    if not _route(q):
+        return flash_attention_plain(q, k, v, causal)
+    out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 pos) -> torch.Tensor:
+    """q: (BH, 1, D); k/v: (BH, T, D); pos: an int or a one-element integer
+    tensor, the last valid index shared by every row. Returns (BH, 1, D).
+    On the card pos reaches the kernel as a device int32 (an int is filled
+    there, a tensor copied), so the call makes no host sync. Unlike the JAX
+    wrapper, T is not padded, so pos >= T attends exactly the T keys."""
+    if not _route(q):
+        return flash_decode_plain(q, k, v, pos)
+    if isinstance(pos, torch.Tensor):
+        pos_d = pos.to(device=q.device, dtype=torch.int32).reshape(1)
+    else:
+        pos_d = torch.full((1,), int(pos), dtype=torch.int32,
+                           device=q.device)
+    out = flash_decode_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                            pos_d.contiguous())
+    LAUNCHES["flash_decode"] += 1
     return out

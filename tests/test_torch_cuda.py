@@ -389,3 +389,87 @@ def test_cuda_moe_gmm_and_router_score_reject_bad_operands():
         tops.router_score(x, wide, wide)
     with pytest.raises(ValueError):
         tops.router_score(x, torch.randn(32, 5), torch.randn(32, 5))
+
+
+# (BH, S, T, D, causal): S and T not multiples of the 64 x 32 tiles, the
+# causal S > T case (queries past T see every key), a non-causal ragged T,
+# gemma3's D 256, a D the 16-byte loads cannot take, and a tiny call
+FLASH_ATTN_CASES = [(3, 100, 100, 16, True), (2, 64, 50, 64, True),
+                    (2, 100, 50, 128, True), (2, 70, 45, 128, False),
+                    (1, 130, 130, 256, True), (2, 33, 40, 100, False),
+                    (2, 5, 9, 3, True)]
+# (BH, T, D, pos): the reference test's shapes, pos at and past T, a
+# negative pos (every key masked: the oracle's uniform average), D 256
+FLASH_DECODE_CASES = [(4, 100, 32, 63), (2, 512, 64, 511), (3, 70, 16, 0),
+                      (1, 33, 8, 20), (2, 100, 128, 120), (2, 100, 128, 99),
+                      (2, 40, 64, -1), (2, 300, 256, 200), (3, 45, 100, 30)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,s,t,d,causal", FLASH_ATTN_CASES)
+def test_cuda_flash_attention_matches_plain(dtype, bh, s, t, d, causal):
+    """flash_attention against its plain version (ref.flash_attention_ref's
+    function, top-left causal mask); one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+               for shape in ((bh, s, d), (bh, t, d), (bh, t, d)))
+    tops.reset_launches()
+    got = tops.flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["flash_attention"] == 1
+    assert got.shape == (bh, s, d) and got.dtype == dt
+    _close(got, ref, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,t,d,pos", FLASH_DECODE_CASES)
+def test_cuda_flash_decode_matches_plain(dtype, bh, t, d, pos):
+    """flash_decode against its plain version (ref.flash_decode_ref's
+    function: no padded keys, so pos >= T attends exactly the T keys); pos
+    handed over as an int and as a device tensor; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+               for shape in ((bh, 1, d), (bh, t, d), (bh, t, d)))
+    tops.reset_launches()
+    got = tops.flash_decode(q, k, v, pos)
+    again = tops.flash_decode(q, k, v, torch.tensor(pos, device=dev))
+    ref = flash_decode_plain(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["flash_decode"] == 2
+    assert got.shape == (bh, 1, d) and got.dtype == dt
+    assert torch.equal(got, again)
+    _close(got, ref, dt)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_pair_rejects_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    q = torch.randn(2, 8, 64, device=dev)
+    with pytest.raises(ValueError):                   # D past 256
+        wide = torch.randn(2, 8, 300, device=dev)
+        tops.flash_attention(wide, wide, wide)
+    with pytest.raises(TypeError):
+        tops.flash_attention(q, q, q.bfloat16())
+    with pytest.raises(ValueError):                   # k and v differ
+        tops.flash_attention(q, q, q[:, :4].contiguous())
+    with pytest.raises(ValueError):                   # two queries a row
+        tops.flash_decode(q[:, :2].contiguous(), q, q, 3)
+    with pytest.raises(ValueError):                   # v on the CPU
+        tops.flash_decode(q[:, :1].contiguous(), q, q.cpu(), 3)

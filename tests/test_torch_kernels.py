@@ -131,4 +131,5 @@ def test_wrappers_route_cpu_tensors_to_plain_without_counting():
     assert tops.LAUNCHES == {"swiglu_ffn": 0, "moe_gmm_ragged": 0,
                              "moe_gather": 0, "paged_attn_decode": 0,
                              "mla_paged_decode": 0, "ssd_scan": 0,
-                             "moe_gmm": 0, "router_score": 0}
+                             "moe_gmm": 0, "router_score": 0,
+                             "flash_attention": 0, "flash_decode": 0}
