@@ -8,7 +8,11 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
   1. device and build: the card's name and power limit (nvidia-smi), then
      the ten CUDA kernels built from the nine sources in
      ``src/repro_torch/kernels/csrc`` with nvcc, one process per source,
-     all started together;
+     all started together; ptxas's registers and spills, and for each
+     instantiation of flash_attention's two kernels a ``[tensor cores]``
+     line with its registers, spills and the count of HGMMA (wgmma)
+     instructions in the library's SASS (cuobjdump): a tensor-core
+     instantiation with no HGMMA, or with spills, fails the run;
   2. each kernel against its plain PyTorch version on the card at the shapes
      of its path, in float32 (|err| <= 1e-4 max|ref|) and bfloat16 (|err|
      <= 2e-2 max|ref|; sentinel rows of moe_gather exactly zero;
@@ -75,10 +79,11 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      (gqa_project_qkv and apply_rope), causal against the plain version
      and the port's chunked_attention, non-causal with T = 4096 - 37, and a
      causal call at the static main path's shape (4 x 32 tokens, 16 heads
-     of 64); (b) Model.prefill of 4 x 1024 tokens into a contiguous cache of
-     1100, one Model.decode_step, then layer 0's cache and the step's
-     post-RoPE query (BH 128, T 1100, pos 1024) against the plain version
-     and decode_attention; tolerances as in phase 2.
+     of 64), the float32 calls on the SIMT kernel and the bfloat16 ones on
+     the tensor cores; (b) Model.prefill of 4 x 1024 tokens into a
+     contiguous cache of 1100, one Model.decode_step, then layer 0's cache
+     and the step's post-RoPE query (BH 128, T 1100, pos 1024) against the
+     plain version and decode_attention; tolerances as in phase 2.
 Phase 2 also holds ssd_scan against its plain version (float32, and bf16
 inputs, |err| <= 1e-4 max|ref|: the arithmetic is float32 in both) at
 mamba2's prefill shape from a zero and a random state, a length that is
@@ -89,11 +94,16 @@ zamba2's widths, and times it at the prefill shape; moe_gmm at C = 8, 1,
 N_r 5 and 13 for T of 4, 128, 512 and 100 (timed at T 512, d 1024, N_r
 5), each in float32 and bfloat16 with the tolerances above;
 flash_attention at D 16, 64, 128 and 256 with S and T off the tiles, causal
-S > T, a non-causal ragged T and the static main path's shape (timed at
-llama2-7b's causal prefill, BH 32, S = T = 4096, D 128, beside
-scaled_dot_product_attention), and flash_decode at D 16 to 256 with pos 0,
-T - 1, >= T and < 0 (timed at phase 7's decode shape and a full 4096
-cache, beside scaled_dot_product_attention with a boolean mask). Before
+S > T, a non-causal ragged T and the static main path's shape, and in
+bfloat16 (the tensor-core route) at D 64, 128 and 256 with S and T off its
+128-row and K/V tiles: causal S > T and S < T, a non-causal ragged T, S =
+1, T = 1 and more than one wave of blocks, each call checked to run the
+kernel that flash_attention.route names (timed at llama2-7b's causal
+prefill, BH 32, S = T = 4096, D 128, and at D 64 and 256 at the same BH,
+S and T, each beside scaled_dot_product_attention), and flash_decode at D
+16 to 256 with pos 0, T - 1, >= T and < 0 (timed at phase 7's decode shape
+and a full 4096 cache, beside scaled_dot_product_attention with a boolean
+mask). Before
 each SSM model and phase 7 the memory still allocated is printed before
 and after a garbage collection.
 Prints the kernels JSON line, then ``{"ok": true, "device": {...}}`` last.
@@ -104,6 +114,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -895,23 +906,116 @@ def decode_work(bh, t, d, pos, itemsize) -> tuple[float, float]:
         itemsize + 4
 
 
+# flash_attention's kernels in mangled names: the tensor-core one by (DP,
+# BK), the SIMT one by (element type, NJ)
+TC_KERNEL = re.compile(r"flash_attn_tcILi(\d+)ELi(\d+)E")
+SIMT_KERNEL = re.compile(r"flash_attn_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+TC_INSTANCES = 3           # DP 64, 128, 256
+
+
+def tensor_core_report() -> None:
+    """Phase 1: a [tensor cores] line for each instantiation of
+    flash_attention's kernels, with its registers and spills (ptxas) and
+    the HGMMA instructions in its SASS (cuobjdump -sass on the library). A
+    tensor-core instantiation with no HGMMA or with spills fails."""
+    from repro_torch.kernels import build
+
+    def label(name):
+        m = TC_KERNEL.search(name)
+        if m:
+            return f"bf16 flash_attn_tc<DP {m[1]}, BK {m[2]}>", True
+        m = SIMT_KERNEL.search(name)
+        if m:
+            return (f"{'f32' if m[1] == 'f' else 'bf16'} flash_attn_kernel"
+                    f"<NJ {m[2]}>"), False
+        return None, False
+
+    usage, cur = {}, None
+    for line in build.build_log("flash_attention").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m[1]
+            usage[cur] = {}
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                     r"bytes spill loads", line)):
+            usage[cur]["spills"] = int(m[1]) + int(m[2])
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            usage[cur]["regs"] = int(m[1])
+        if "wgmma" in line or "setmaxnreg" in line or "Loss" in line:
+            print(f"[tensor cores] ptxas: {line.strip()}")
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hgmma, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m[1]
+            hgmma[cur] = 0
+        elif cur and "HGMMA" in line:
+            hgmma[cur] += 1
+    n_tc = 0
+    for name in sorted(hgmma, key=lambda n: label(n)[0] or n):
+        what, tensor_core = label(name)
+        if what is None:
+            continue
+        use = usage.get(name, {})
+        print(f"[tensor cores] flash_attention {what}: {use.get('regs')} "
+              f"registers, {use.get('spills')} bytes spilled, "
+              f"{hgmma[name]} HGMMA in SASS")
+        if tensor_core:
+            n_tc += 1
+            if hgmma[name] == 0 or use.get("spills") != 0:
+                raise AssertionError(f"{what}: {hgmma[name]} HGMMA, "
+                                     f"{use.get('spills')} bytes spilled")
+    if n_tc != TC_INSTANCES:
+        raise AssertionError(f"{n_tc} tensor-core instantiations in the "
+                             f"SASS, want {TC_INSTANCES}")
+
+
 def flash_attention_phase(g, dev) -> dict:
     """flash_attention against its plain version in float32 and bfloat16 at
     D 16, 64, 128 and 256: S and T not multiples of the kernel's 64 x 32
     tiles, causal S > T and S < T, a non-causal ragged T, the static main
     path's shape (4 x 32 tokens, qwen1.5-0.5b's 16 heads of 64) and
-    llama2-7b's causal prefill (32 heads, 4096 tokens, D 128); timed there
-    in bfloat16 beside its plain version, scaled_dot_product_attention
-    (is_causal: the top-left mask) and its bound."""
+    llama2-7b's causal prefill (32 heads, 4096 tokens, D 128); in bfloat16
+    also at D 64, 128 and 256 with S and T off the tensor-core kernel's
+    128-row and K/V tiles, S = 1, T = 1 and more than one wave of blocks.
+    Every call is checked to have run the kernel flash_attention.route
+    names. Timed in bfloat16 at llama2-7b's prefill beside its plain
+    version, scaled_dot_product_attention (is_causal: the top-left mask)
+    and its bound, and at D 64 and 256 (same BH, S and T) beside SDPA."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES,
+                                                     flash_attention_plain,
+                                                     route)
 
-    def case(bh, s, t, d, dtype):
-        return [torch.randn(shape, generator=g, device=dev).to(dtype)
+    def case(bh, s, t, d, dtype, gen=g):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
                 for shape in ((bh, s, d), (bh, t, d), (bh, t, d))]
+
+    # the tensor-core cases and the D 64 / 256 timings draw from their own
+    # generator, so that g's draws (and every later phase 2 check) stay as
+    # they were before those were added
+    g_tc = torch.Generator(device=dev)
+    g_tc.manual_seed(22)
+
+    def checked(q, k, v, causal, what):
+        ROUTE_LAUNCHES.clear()
+        err = check(f"flash_attention {what} "
+                    f"{'causal' if causal else 'full'}",
+                    ops.flash_attention(q, k, v, causal=causal),
+                    flash_attention_plain(q, k, v, causal), q.dtype)
+        want = {route(q.dtype, q.shape[-1]): 1}
+        if dict(ROUTE_LAUNCHES) != want:
+            raise AssertionError(f"flash_attention {what}: routes "
+                                 f"{dict(ROUTE_LAUNCHES)}, want {want}")
+        return err
 
     cases = [(3, 100, 100, 16, True), (2, 200, 130, 64, True),
              (2, 75, 300, 128, True), (2, 100, 77, 128, False),
@@ -919,32 +1023,50 @@ def flash_attention_phase(g, dev) -> dict:
              (BATCH * 16, PROMPT, PROMPT, 64, True)]
     for dt in (torch.float32, torch.bfloat16):
         for bh, s, t, d, causal in cases:
-            q, k, v = case(bh, s, t, d, dt)
-            check(f"flash_attention BH={bh} S={s} T={t} D={d} "
-                  f"{'causal' if causal else 'full'}",
-                  ops.flash_attention(q, k, v, causal=causal),
-                  flash_attention_plain(q, k, v, causal), dt)
+            checked(*case(bh, s, t, d, dt), causal,
+                    f"BH={bh} S={s} T={t} D={d}")
+    # the tensor-core route off its tiles (128 q rows; 128 keys at D 64 and
+    # 128, 64 at D 256), and 264 x 2 blocks: four waves of 132
+    for d in (64, 128, 256):
+        for bh, s, t, causal in [(2, 300, 190, True), (2, 150, 333, True),
+                                 (2, 200, 259, False), (3, 1, 77, False),
+                                 (3, 77, 1, True), (264, 130, 130, True)]:
+            checked(*case(bh, s, t, d, torch.bfloat16, g_tc), causal,
+                    f"tensor cores BH={bh} S={s} T={t} D={d}")
     bh, s, t, d = (FA_MAIN[n] for n in ("bh", "s", "t", "d"))
     bf = torch.bfloat16
-    flops, nbytes = attention_work(bh, s, t, d, True, 2)
-    sets = [case(bh, s, t, d, bf) for _ in range(n_sets(nbytes))]
-    err = check(f"flash_attention llama2-7b prefill BH={bh} S={s} D={d} "
-                f"causal", ops.flash_attention(*sets[0]),
-                flash_attention_plain(*sets[0]), bf)
-    ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v), sets,
-                 iters=10)
-    plain_ms = time_ms(lambda q, k, v: flash_attention_plain(q, k, v), sets,
-                       iters=10)
-    lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q[None], k[None], v[None], is_causal=True), sets, iters=10)
-    b_ms, b_by = bound(flops, nbytes, "bfloat16")
+
+    def timed(d, plain, gen=g):
+        flops, nbytes = attention_work(bh, s, t, d, True, 2)
+        sets = [case(bh, s, t, d, bf, gen) for _ in range(n_sets(nbytes))]
+        err = checked(*sets[0], True, f"llama2-7b prefill BH={bh} S={s} "
+                      f"D={d}")
+        ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v), sets,
+                     iters=10)
+        plain_ms = time_ms(lambda q, k, v: flash_attention_plain(q, k, v),
+                           sets, iters=10) if plain else None
+        lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True), sets, iters=10)
+        b_ms, b_by = bound(flops, nbytes, "bfloat16")
+        print(f"[time] flash_attention BH={bh} S={s} T={t} D={d} causal "
+              f"bf16: {ms:.4f} ms, {flops / ms * 1e-9:.1f} TFLOP/s (bound "
+              f"{b_ms:.4f} ms, {b_by}; SDPA {lib_ms:.4f} ms, "
+              f"{flops / lib_ms * 1e-9:.1f} TFLOP/s)")
+        return err, ms, plain_ms, lib_ms, b_ms, b_by
+
+    err, ms, plain_ms, lib_ms, b_ms, b_by = timed(d, True)
+    widths = {}
+    for dw in (64, 256):
+        _, w_ms, _, w_lib, w_b, w_by = timed(dw, False, g_tc)
+        widths[f"D={dw}"] = dict(ms=w_ms, library_ms=w_lib, bound_ms=w_b,
+                                 bound_by=w_by)
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:72", launches=None,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, dtype="bfloat16",
-        shape=f"BH={bh} S={s} T={t} D={d} causal")
+        shape=f"BH={bh} S={s} T={t} D={d} causal", other_widths=widths)
 
 
 def flash_decode_phase(g, dev) -> dict:
@@ -1709,7 +1831,8 @@ def attention_pair() -> dict:
     from repro_torch.config import override
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES,
+                                                     flash_attention_plain)
     from repro_torch.kernels.flash_decode import flash_decode_plain
     from repro_torch.models import build_model
     from repro_torch.models.attention import (chunked_attention,
@@ -1727,6 +1850,7 @@ def attention_pair() -> dict:
     nb, npr, max_len = LLAMA_DECODE.values()
     torch.cuda.synchronize()
     ops.reset_launches()
+    ROUTE_LAUNCHES.clear()
     for dt in ("float32", "bfloat16"):
         cfg = override(base, dtype=dt, num_layers=LLAMA_LAYERS)
         model = build_model(cfg, device=dev)
@@ -1805,7 +1929,12 @@ def attention_pair() -> dict:
     got = {n: launches[n] for n in want}
     if got != want:
         raise AssertionError(f"phase 7 launches {got}, want {want}")
-    print(f"[phase 7] launches {launches}")
+    routes = dict(ROUTE_LAUNCHES)
+    if routes != {"simt": 3, "tensor_core": 3}:
+        raise AssertionError(f"phase 7 flash_attention routes {routes}: "
+                             f"want the 3 float32 calls on the SIMT kernel "
+                             f"and the 3 bfloat16 ones on the tensor cores")
+    print(f"[phase 7] launches {launches}; flash_attention routes {routes}")
     return launches
 
 
@@ -1846,6 +1975,7 @@ def main(argv=None) -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
+    tensor_core_report()
 
     # phase 2: kernels against their plain versions, then timed
     records = kernel_phase()

@@ -5,7 +5,8 @@ shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Libraries go into
 ``kernels/build/`` (listed in ``.gitignore``) under a name that carries a
 hash of the sources and flags, so an edited source never loads a stale
-library. All sources compile in parallel, one ``nvcc`` each, on first use.
+library; nvcc's output (ptxas's registers and spills) is kept beside each
+as ``.log``. All sources compile in parallel, one ``nvcc`` each, on first use.
 Nothing here runs at import time: the CPU tests import this module.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("swiglu", "moe_gmm", "moe_gather", "paged_attn", "mla_paged",
            "ssd_scan", "router_score", "flash_attention", "flash_decode")
-HEADERS = ("ffn_core.cuh", "convert.cuh")
+HEADERS = ("ffn_core.cuh", "convert.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -50,12 +51,13 @@ SIGNATURES = {
     "router_score_launch": ("router_score", [_P] * 4 + [_I] * 5 + [_P]),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 4 + [_I] * 4 + [_F, _I, _I, _P]),
+    "flash_attention_tc_launch": ("flash_attention",
+                                  [_P] * 4 + [_I] * 4 + [_F, _I, _P]),
     "flash_decode_launch": ("flash_decode", [_P] * 5 + [_I] * 3 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-_build_log: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -78,7 +80,8 @@ def _digest(name: str) -> str:
     return h.hexdigest()[:12]
 
 
-def _lib_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where csrc/<name>.cu's library is (or will be) built."""
     return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
 
 
@@ -91,7 +94,7 @@ def build_all() -> dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in SOURCES:
-        out = _lib_path(name)
+        out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -104,10 +107,10 @@ def build_all() -> dict[str, float]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
-        _build_log[name] = log
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)        # atomic: a reader never sees half a .so
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -115,9 +118,10 @@ def build_all() -> dict[str, float]:
 
 
 def build_log(name: str) -> str:
-    """nvcc/ptxas output of this process's build of `name` ('' if the
-    library was already built)."""
-    return _build_log.get(name, "")
+    """nvcc/ptxas output of the build of `name`'s current library (kept
+    beside it; '' if it is not built)."""
+    saved = library_path(name).with_suffix(".log")
+    return saved.read_text() if saved.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -126,9 +130,9 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        if not _lib_path(name).exists():
+        if not library_path(name).exists():
             build_all()
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         for fn_name, (source, argtypes) in SIGNATURES.items():
             if source == name:
                 fn = getattr(lib, fn_name)

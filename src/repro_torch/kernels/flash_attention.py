@@ -2,8 +2,11 @@
 causal (top-left mask) or full, with an online softmax.
 
 Port of the Pallas kernel ``repro/kernels/flash_attention.py::
-flash_attention``. The CUDA kernel is ``csrc/flash_attention.cu`` (its
-source note states the bound on an H100 and the design); the plain version
+flash_attention``. The CUDA source is ``csrc/flash_attention.cu`` (its note
+states the bound on an H100 and the design). It holds two hand-written
+kernels, and ``route(dtype, D)`` picks one: bfloat16 with D a multiple of
+16 up to 256 (every head width in ``configs/``) runs on the tensor cores
+(``wgmma``), everything else on the fp32 FMA units. The plain version
 below is the oracle ``repro/kernels/ref.py::flash_attention_ref``: fp32
 scores scaled by D^-0.5, under ``causal`` the mask kpos <= qpos (top-left,
 so with S > T the last S - T queries see every key), a softmax, p rounded
@@ -17,6 +20,8 @@ oracle. There are no block arguments: the kernel's tiles are its own.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from repro_torch.kernels import build
@@ -27,6 +32,19 @@ NEG_INF = -1e30
 # csrc/flash_attention.cu: the widest head it takes (gemma3-4b's 256 is
 # the widest in configs/)
 MAX_HEAD_DIM = 256
+# launches of each route since the last reset: which kernel a call ran
+ROUTE_LAUNCHES: Counter = Counter()
+_ENTRIES = {"tensor_core": "flash_attention_tc_launch",
+            "simt": "flash_attention_launch"}
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The CUDA kernel that serves a call: "tensor_core" for bfloat16 with
+    D a multiple of 16 up to MAX_HEAD_DIM, else "simt" (float32 at any D,
+    bfloat16 off the 16 grid)."""
+    if dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= MAX_HEAD_DIM:
+        return "tensor_core"
+    return "simt"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,8 +63,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream. Any S, T >= 1 and D
-    from 1 to MAX_HEAD_DIM."""
+    """Launch the kernel that ``route`` names on the current stream. Any S,
+    T >= 1 and D from 1 to MAX_HEAD_DIM."""
     dt, dev = check_float_operands(q, k, v)
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape or \
             k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
@@ -60,9 +78,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes D from 1 to {MAX_HEAD_DIM}; "
                          f"got {d}")
+    path = route(q.dtype, d)
+    args = [float(d ** -0.5), int(bool(causal))]
+    if path == "tensor_core":
+        # its TMA loads need a 16-byte aligned base (D % 16 == 0 keeps the
+        # rows on that grid; a view may start off it)
+        q, k, v = (a if a.data_ptr() % 16 == 0 else a.clone()
+                   for a in (q, k, v))
+    else:
+        args.append(dt)
     out = torch.empty_like(q)
-    err = build.entry("flash_attention_launch")(
+    err = build.entry(_ENTRIES[path])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, t,
-        d, float(d ** -0.5), int(bool(causal)), dt, stream_ptr(dev))
-    raise_on_error(err, "flash_attention")
+        d, *args, stream_ptr(dev))
+    raise_on_error(err, f"flash_attention ({path})")
+    ROUTE_LAUNCHES[path] += 1
     return out

@@ -398,6 +398,14 @@ FLASH_ATTN_CASES = [(3, 100, 100, 16, True), (2, 64, 50, 64, True),
                     (2, 100, 50, 128, True), (2, 70, 45, 128, False),
                     (1, 130, 130, 256, True), (2, 33, 40, 100, False),
                     (2, 5, 9, 3, True)]
+# bf16 runs these on the tensor cores (128-row q tiles, 128-key K/V tiles at
+# D 64 and 128, 64 at D 256): S and T off both tiles, causal S > T and S <
+# T, a non-causal ragged T, S = 1, T = 1; and 264 x 2 blocks, four waves
+FLASH_ATTN_CASES += [(bh, s, t, d, causal) for d in (64, 128, 256)
+                     for bh, s, t, causal in
+                     [(2, 300, 190, True), (2, 150, 333, True),
+                      (2, 200, 259, False), (3, 1, 77, False),
+                      (3, 77, 1, True)]] + [(264, 130, 130, 128, True)]
 # (BH, T, D, pos): the reference test's shapes, pos at and past T, a
 # negative pos (every key masked: the oracle's uniform average), D 256
 FLASH_DECODE_CASES = [(4, 100, 32, 63), (2, 512, 64, 511), (3, 70, 16, 0),
@@ -410,10 +418,13 @@ FLASH_DECODE_CASES = [(4, 100, 32, 63), (2, 512, 64, 511), (3, 70, 16, 0),
 @pytest.mark.parametrize("bh,s,t,d,causal", FLASH_ATTN_CASES)
 def test_cuda_flash_attention_matches_plain(dtype, bh, s, t, d, causal):
     """flash_attention against its plain version (ref.flash_attention_ref's
-    function, top-left causal mask); one launch counted per call."""
+    function, top-left causal mask); one launch counted per call, on the
+    kernel that ``route`` names."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES,
+                                                     flash_attention_plain,
+                                                     route)
     dt = getattr(torch, dtype)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -421,10 +432,12 @@ def test_cuda_flash_attention_matches_plain(dtype, bh, s, t, d, causal):
     q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
                for shape in ((bh, s, d), (bh, t, d), (bh, t, d)))
     tops.reset_launches()
+    ROUTE_LAUNCHES.clear()
     got = tops.flash_attention(q, k, v, causal=causal)
     ref = flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
     assert tops.LAUNCHES["flash_attention"] == 1
+    assert ROUTE_LAUNCHES == {route(dt, d): 1}
     assert got.shape == (bh, s, d) and got.dtype == dt
     _close(got, ref, dt)
 

@@ -16,7 +16,12 @@ against the JAX package on the CPU.
   cache and query after a decode step, built in both packages; the JAX
   ops, the port's ops on CPU tensors (the plain versions) and the port's
   own ``chunked_attention`` / ``decode_attention`` agree within 2e-5;
-* on CPU tensors the wrappers run the plain versions and count no launch.
+* on CPU tensors the wrappers run the plain versions and count no launch;
+* ``route``: bfloat16 with D a multiple of 16 up to 256 goes to the
+  tensor-core kernel, everything else to the SIMT one; and the plain
+  version against ``ref`` and the Pallas kernel in bfloat16 at the
+  tensor-core route's widest heads (D 128 and 256), causal with S > T and
+  S < T.
 
 Inputs are drawn from seeded numpy generators."""
 import jax
@@ -36,7 +41,7 @@ from repro_torch.bridge import params_from_jax_numpy
 from repro_torch.config import override
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain, route
 from repro_torch.kernels.flash_decode import flash_decode_plain
 from repro_torch.models import attention as tattn
 from repro_torch.models import build_model
@@ -200,3 +205,32 @@ def test_cpu_wrappers_run_the_plain_versions_without_a_launch():
                            flash_decode_plain(q[:, :1], k, v, pos))
     assert tops.LAUNCHES["flash_attention"] == 0
     assert tops.LAUNCHES["flash_decode"] == 0
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    ("bfloat16", 16, "tensor_core"), ("bfloat16", 64, "tensor_core"),
+    ("bfloat16", 128, "tensor_core"), ("bfloat16", 256, "tensor_core"),
+    ("bfloat16", 3, "simt"), ("bfloat16", 24, "simt"),
+    ("bfloat16", 100, "simt"), ("float32", 3, "simt"),
+    ("float32", 64, "simt"), ("float32", 128, "simt"),
+    ("float32", 256, "simt")])
+def test_route_sends_bf16_on_the_16_grid_to_the_tensor_cores(dtype, d, want):
+    assert route(getattr(torch, dtype), d) == want
+
+
+@pytest.mark.parametrize("s,t", [(96, 64), (64, 96)])
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_attention_plain_matches_jax_bf16_wide_heads(s, t, d):
+    """bf16 at the tensor-core route's widest heads, causal with S > T and
+    S < T. S and T are multiples of the JAX blocks (32), so the JAX wrapper
+    pads no key. Tolerance 5e-2, the reference tests' bf16 one: ``ref`` and
+    the plain version round the normalised p to bf16, the Pallas kernel the
+    unnormalised one, which moves an output by a few bf16 ulps."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        s * t + d, [(2, s, d), (2, t, d), (2, t, d)], "bfloat16")
+    got = flash_attention_plain(tq, tk, tv, causal=True)
+    assert got.shape == (2, s, d) and got.dtype == torch.bfloat16
+    for exp in (jref.flash_attention_ref(jq, jk, jv, causal=True),
+                jops.flash_attention(jq, jk, jv, causal=True, block_q=32,
+                                     block_k=32)):
+        np.testing.assert_allclose(_np(got), _np(exp), **_tol("bfloat16"))
