@@ -9,7 +9,8 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      the ten CUDA kernels built from the nine sources in
      ``src/repro_torch/kernels/csrc`` with nvcc, one process per source,
      all started together; ptxas's registers and spills, and for each
-     instantiation of flash_attention's two kernels a ``[tensor cores]``
+     instantiation of flash_attention's two kernels and of the tensor-core
+     FFN core (ffn_tc.cuh, in swiglu and moe_gmm) a ``[tensor cores]``
      line with its registers, spills and the count of HGMMA (wgmma)
      instructions in the library's SASS (cuobjdump): a tensor-core
      instantiation with no HGMMA, or with spills, fails the run;
@@ -23,7 +24,9 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      in bfloat16 beside its plain version, a PyTorch yardstick (library_ms,
      null where no one PyTorch call computes the function) and its bound
      on the card; moe_gmm_ragged and moe_gather also at deepseek-v2's
-     expert shapes;
+     expert shapes; swiglu_ffn and moe_gmm, which have a tensor-core kernel
+     for bfloat16 and the SIMT one for float32, with each call checked to
+     run the kernel its route names, and timed on both;
   3. the static path at the full width of qwen1.5-0.5b (24 layers, seeded
      random weights): (a) in float32 the kernel path against the plain path
      on one converted model (prefill logits within 1e-3 max|logit|, greedy
@@ -39,7 +42,8 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
   4. the continuous-batching engine at the same width in bfloat16: first
      each dense product of the engine (and the norm) is checked bitwise
      width-invariant on the card (a row alone and inside every width the
-     engine runs), at qwen1.5-0.5b's and deepseek-v2's shapes; then two
+     engine runs), at qwen1.5-0.5b's and deepseek-v2's shapes, and
+     swiglu_ffn and moe_gmm on the tensor cores up to 512 rows; then two
      runs through the CLI's entry point (overlapped + paged, with parity
      replays: sequential, contiguous, and in the second run prefix reuse
      off), with the launch counts zeroed before and read after; every
@@ -84,13 +88,25 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      contiguous cache of 1100, one Model.decode_step, then layer 0's cache
      and the step's post-RoPE query (BH 128, T 1100, pos 1024) against the
      plain version and decode_attention; tolerances as in phase 2.
+The ``[routes]`` lines of phases 3a, 3b, 4, 5 (path A, 5b, 5c) and 6
+count which kernel each launch of swiglu_ffn and moe_gmm ran: every
+bfloat16 launch on the tensor cores, every float32 one on the SIMT core
+(phase 7 checks half and half), or the run fails.
+Phase 2 checks swiglu_ffn at T 512 in float32 and bfloat16 and, in
+bfloat16, at T 1, 4, 100 and 512 at qwen1.5-0.5b's and zamba2-1.2b's widths
+(swiglu and geglu); it times it at T 512 (also the SIMT kernel on the same
+bfloat16 inputs and in float32, and the kernel and its yardstick as 50
+calls replayed from one CUDA graph) and at zamba2-1.2b's decode (T 4, d
+2048, f 8192) on both kernels.
 Phase 2 also holds ssd_scan against its plain version (float32, and bf16
 inputs, |err| <= 1e-4 max|ref|: the arithmetic is float32 in both) at
 mamba2's prefill shape from a zero and a random state, a length that is
 not a multiple of the kernel's chunk, a long forward (2 x 2048) and
 zamba2's widths, and times it at the prefill shape; moe_gmm at C = 8, 1,
 70 and 130 and at deepseek-v2's expert widths (E 160, d 5120, m 1536, C =
-8, where it is timed), and router_score at d 1024 / N_r 5 and d 4096 /
+8, where it is timed, beside the SIMT kernel in bfloat16 and float32; in
+bfloat16 also at C 1, 8, 70 and 130 on 4 of those experts), and
+router_score at d 1024 / N_r 5 and d 4096 /
 N_r 5 and 13 for T of 4, 128, 512 and 100 (timed at T 512, d 1024, N_r
 5), each in float32 and bfloat16 with the tolerances above;
 flash_attention at D 16, 64, 128 and 256 with S and T off the tiles, causal
@@ -160,6 +176,11 @@ MLA_MAIN = dict(rows=4, heads=128, r=512, dr=64, bs=16, depth=80)
 MLA_LONG = dict(rows=32, heads=128, r=512, dr=64, bs=16, depth=2048)
 MLA_SCALE = (128 + 64) ** -0.5
 
+# swiglu_ffn's widths: qwen1.5-0.5b's dense FFN (d, f), timed at the
+# calibration forward (CALIB_ROWS tokens), and zamba2-1.2b's shared block at
+# a decode step of the static path
+QWEN_FFN = (1024, 2816)
+ZAMBA_DECODE = dict(t=BATCH, d=2048, f=8192)
 # moe_gmm's timed shape: deepseek-v2's experts at a static prefill's
 # capacity (4 x 32 tokens, top-6 of 160: 4.8 rows an expert on average);
 # router_score's: the converted qwen1.5-0.5b's calibration batch
@@ -218,6 +239,33 @@ def time_ms(fn, inputs: list, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, inputs: list, iters: int = 50) -> float:
+    """Mean ms per call of `iters` calls (rotating over `inputs`) captured
+    in one CUDA graph and replayed: the device's time without the host's
+    cost of each launch."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(*inputs[i % len(inputs)])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
 def check(name: str, got, ref, dtype, sentinel_rows=None) -> float:
     """Kernel against plain on the same inputs; returns max |err|."""
     import torch
@@ -255,21 +303,16 @@ def kernel_phase() -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.moe_gather import moe_gather_plain
     from repro_torch.kernels.moe_gmm import moe_gmm_ragged_plain
-    from repro_torch.kernels.swiglu import swiglu_ffn_plain
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    d, f = 1024, 2816
+    d, f = QWEN_FFN
     n_e, m, top_k = 5, f // 8, 3
     block = ops.ragged_block_c()
 
     def rnd(shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
-
-    def swiglu_set(dtype):
-        return [rnd((CALIB_ROWS, d), dtype), rnd((d, f), dtype, d ** -0.5),
-                rnd((d, f), dtype, d ** -0.5), rnd((f, d), dtype, f ** -0.5)]
 
     def banks(dtype):
         return [rnd((n_e, d, m), dtype, d ** -0.5),
@@ -293,25 +336,7 @@ def kernel_phase() -> dict:
     records = {}
     act = "swiglu"
 
-    # --- swiglu_ffn: the dense FFN of the calibration forward (T = 512)
-    for dt in (torch.float32, torch.bfloat16):
-        x, wg, wu, wd = swiglu_set(dt)
-        err = check("swiglu_ffn", ops.swiglu_ffn(x, wg, wu, wd),
-                    swiglu_ffn_plain(x, wg, wu, wd, act), dt)
-    nbytes = 2 * (2 * CALIB_ROWS * d + 3 * d * f)
-    sets = [swiglu_set(torch.bfloat16) for _ in range(n_sets(nbytes))]
-    ms = time_ms(lambda x, wg, wu, wd: ops.swiglu_ffn(x, wg, wu, wd), sets)
-    plain_ms = time_ms(lambda *a: swiglu_ffn_plain(*a, act), sets)
-    lib_ms = time_ms(lambda x, wg, wu, wd: (F.silu(x @ wg) * (x @ wu)) @ wd,
-                     sets)
-    b_ms, b_by = bound(6 * CALIB_ROWS * d * f, nbytes, "bfloat16")
-    records["swiglu_ffn"] = dict(
-        name="swiglu_ffn", route="cuda",
-        source="src/repro_torch/kernels/csrc/swiglu.cu",
-        replaces="src/repro/kernels/swiglu.py:55", launches=None,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, dtype="bfloat16",
-        shape=f"T={CALIB_ROWS} d={d} f={f}")
+    records["swiglu_ffn"] = swiglu_phase(g, dev)
 
     # --- moe_gmm_ragged: routed experts at prefill (4 x 32 tokens, top-3)
     for dt in (torch.float32, torch.bfloat16):
@@ -393,6 +418,104 @@ def kernel_phase() -> dict:
               f"{r['plain_ms']:.4f} ms, "
               f"library {lib}")
     return records
+
+
+def swiglu_phase(g, dev) -> dict:
+    """swiglu_ffn, the dense FFN of the calibration forward (T 512, d 1024,
+    f 2816), against its plain version in float32 and bfloat16, each call
+    checked to run the kernel swiglu.route names; in bfloat16 (the tensor-
+    core route) also at T 1, 4, 100 and 512 at qwen1.5-0.5b's and zamba2-
+    1.2b's widths, swiglu and geglu. Timed in bfloat16 at T 512 beside its
+    plain version, the SIMT kernel on the same inputs and in float32, the
+    F.silu + @ chain and its bound, as 50 back-to-back calls and (the
+    kernel and the chain) as 50 calls replayed from one CUDA graph; and at
+    zamba2-1.2b's decode (ZAMBA_DECODE) on both routes beside the chain."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.swiglu import (ROUTE_LAUNCHES, route,
+                                            swiglu_ffn_cuda, swiglu_ffn_plain)
+
+    bf = torch.bfloat16
+    d, f = QWEN_FFN
+    # the tensor-core checks and the zamba2 timing draw from their own
+    # generator, so that g's draws (and every later phase 2 check) stay as
+    # they were before those were added
+    g_tc = torch.Generator(device=dev)
+    g_tc.manual_seed(23)
+
+    def swiglu_set(dtype, t=CALIB_ROWS, d=d, f=f, gen=g):
+        def rnd(shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=dev) *
+                    scale).to(dtype)
+        return [rnd((t, d)), rnd((d, f), d ** -0.5), rnd((d, f), d ** -0.5),
+                rnd((f, d), f ** -0.5)]
+
+    def checked(what, x, wg, wu, wd, activation="swiglu"):
+        ROUTE_LAUNCHES.clear()
+        err = check(f"swiglu_ffn {what}",
+                    ops.swiglu_ffn(x, wg, wu, wd, activation=activation),
+                    swiglu_ffn_plain(x, wg, wu, wd, activation), x.dtype)
+        want = {route(x.dtype, *wg.shape): 1}
+        if dict(ROUTE_LAUNCHES) != want:
+            raise AssertionError(f"swiglu_ffn {what}: routes "
+                                 f"{dict(ROUTE_LAUNCHES)}, want {want}")
+        return err
+
+    def chain(x, wg, wu, wd):
+        return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+    def simt(*a):
+        return swiglu_ffn_cuda(*a, path="simt")
+
+    for dt in (torch.float32, bf):
+        err = checked(f"T={CALIB_ROWS} d={d} f={f}", *swiglu_set(dt))
+    nbytes = 2 * (2 * CALIB_ROWS * d + 3 * d * f)
+    sets = [swiglu_set(bf) for _ in range(n_sets(nbytes))]
+    ms = time_ms(lambda x, wg, wu, wd: ops.swiglu_ffn(x, wg, wu, wd), sets)
+    plain_ms = time_ms(lambda *a: swiglu_ffn_plain(*a), sets)
+    lib_ms = time_ms(chain, sets)
+    b_ms, b_by = bound(6 * CALIB_ROWS * d * f, nbytes, "bfloat16")
+    simt_ms = time_ms(simt, sets)
+    simt_f32_ms = time_ms(lambda *a: ops.swiglu_ffn(*a),
+                          [[a.float() for a in s] for s in sets])
+    g_ms = graph_ms(lambda x, wg, wu, wd: ops.swiglu_ffn(x, wg, wu, wd),
+                    sets)
+    lib_g_ms = graph_ms(chain, sets)
+    print(f"[time] swiglu_ffn T={CALIB_ROWS} d={d} f={f} bf16: tensor cores "
+          f"{ms:.4f} ms ({g_ms:.4f} ms in a CUDA graph), SIMT {simt_ms:.4f} "
+          f"ms (float32 {simt_f32_ms:.4f} ms), chain {lib_ms:.4f} ms "
+          f"({lib_g_ms:.4f} ms in a CUDA graph), bound {b_ms:.4f} ms "
+          f"({b_by})")
+    for dd, ff in (QWEN_FFN, (ZAMBA_DECODE["d"], ZAMBA_DECODE["f"])):
+        for t in (1, 4, 100, 512):
+            for a in ("swiglu", "geglu"):
+                checked(f"tensor cores T={t} d={dd} f={ff} {a}",
+                        *swiglu_set(bf, t, dd, ff, g_tc), activation=a)
+    zt, zd, zf = ZAMBA_DECODE.values()
+    z_bytes = 2 * (2 * zt * zd + 3 * zd * zf)
+    zsets = [swiglu_set(bf, zt, zd, zf, g_tc) for _ in range(n_sets(z_bytes))]
+    z_ms = time_ms(lambda x, wg, wu, wd: ops.swiglu_ffn(x, wg, wu, wd),
+                   zsets)
+    z_simt = time_ms(simt, zsets)
+    z_lib = time_ms(chain, zsets)
+    z_b, z_by = bound(6 * zt * zd * zf, z_bytes, "bfloat16")
+    print(f"[time] swiglu_ffn zamba2-1.2b decode T={zt} d={zd} f={zf} bf16: "
+          f"tensor cores {z_ms:.4f} ms, SIMT {z_simt:.4f} ms, chain "
+          f"{z_lib:.4f} ms, bound {z_b:.4f} ms ({z_by})")
+    return dict(
+        name="swiglu_ffn", route="cuda",
+        source="src/repro_torch/kernels/csrc/swiglu.cu",
+        replaces="src/repro/kernels/swiglu.py:55", launches=None,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, dtype="bfloat16",
+        shape=f"T={CALIB_ROWS} d={d} f={f}", kernel_route="tensor_core",
+        graph_ms=g_ms, library_graph_ms=lib_g_ms, simt_ms=simt_ms,
+        simt_f32_ms=simt_f32_ms,
+        zamba2_decode=dict(shape=f"T={zt} d={zd} f={zf}", ms=z_ms,
+                           simt_ms=z_simt, library_ms=z_lib, bound_ms=z_b,
+                           bound_by=z_by))
 
 
 def paged_case(g, dev, dtype, *, rows, kh, grp, hd, bs, depth, share=False,
@@ -787,22 +910,37 @@ def moe_gmm_phase(g, dev) -> dict:
     version: C = 8, C = 1 and C of 70 and 130 (not multiples of the 64-row
     tile, one and three tiles an expert) at qwen1.5-0.5b's converted expert
     width, then deepseek-v2's expert widths (E 160, d 5120, m 1536) at C =
-    8 in float32 and bfloat16; timed there in bfloat16 beside its plain
-    version, a torch.bmm yardstick and its bound."""
+    8 in float32 and bfloat16, each call checked to run the kernel
+    moe_gmm.route names; in bfloat16 also at C 1, 8, 70 and 130 at
+    deepseek's d and m (E 4). Timed at deepseek's widths in bfloat16 beside
+    its plain version, the SIMT kernel on the same inputs and in float32, a
+    torch.bmm yardstick and its bound."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.moe_gmm import moe_gmm_plain
+    from repro_torch.kernels.moe_gmm import (ROUTE_LAUNCHES, moe_gmm_cuda,
+                                             moe_gmm_plain, route)
 
-    def rnd(shape, dtype, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+    def rnd(shape, dtype, scale=1.0, gen=g):
+        return (torch.randn(shape, generator=gen, device=dev) *
+                scale).to(dtype)
 
-    def bank(e, d, m, dtype):
-        return [rnd((e, d, m), dtype, d ** -0.5),
-                rnd((e, d, m), dtype, d ** -0.5),
-                rnd((e, m, d), dtype, m ** -0.5)]
+    def bank(e, d, m, dtype, gen=g):
+        return [rnd((e, d, m), dtype, d ** -0.5, gen),
+                rnd((e, d, m), dtype, d ** -0.5, gen),
+                rnd((e, m, d), dtype, m ** -0.5, gen)]
+
+    def checked(what, x, w, act="swiglu"):
+        ROUTE_LAUNCHES.clear()
+        err = check(f"moe_gmm {what}", ops.moe_gmm(x, *w, activation=act),
+                    moe_gmm_plain(x, *w, act), x.dtype)
+        want = {route(x.dtype, *w[0].shape[1:]): 1}
+        if dict(ROUTE_LAUNCHES) != want:
+            raise AssertionError(f"moe_gmm {what}: routes "
+                                 f"{dict(ROUTE_LAUNCHES)}, want {want}")
+        return err
 
     for dt in (torch.float32, torch.bfloat16):
         for e, c, d, m, act in ((8, 8, 1024, 352, "swiglu"),
@@ -810,21 +948,18 @@ def moe_gmm_phase(g, dev) -> dict:
                                 (8, 70, 1024, 352, "geglu"),
                                 (4, 130, 1024, 352, "swiglu")):
             x, w = rnd((e, c, d), dt), bank(e, d, m, dt)
-            check(f"moe_gmm E={e} C={c} d={d} m={m} {act}",
-                  ops.moe_gmm(x, *w, activation=act),
-                  moe_gmm_plain(x, *w, act), dt)
+            checked(f"E={e} C={c} d={d} m={m} {act}", x, w, act)
     ds = get_config(DS_ARCH)
     e, c, d, m = ds.moe.num_experts, GMM_C, ds.d_model, ds.moe.d_expert
     w32 = bank(e, d, m, torch.float32)            # 15.1 GB
     x32 = rnd((e, c, d), torch.float32)
-    check(f"moe_gmm deepseek-v2 E={e} C={c} d={d} m={m}",
-          ops.moe_gmm(x32, *w32), moe_gmm_plain(x32, *w32), torch.float32)
+    checked(f"deepseek-v2 E={e} C={c} d={d} m={m}", x32, w32)
+    simt_f32_ms = time_ms(lambda x, wg, wu, wd: ops.moe_gmm(x, wg, wu, wd),
+                          [[x32] + w32], iters=10)
     bf = torch.bfloat16
     wb = [t.to(bf) for t in w32]                  # 7.55 GB
     del w32
-    err = check(f"moe_gmm deepseek-v2 E={e} C={c} d={d} m={m}",
-                ops.moe_gmm(x32.to(bf), *wb), moe_gmm_plain(x32.to(bf), *wb),
-                bf)
+    err = checked(f"deepseek-v2 E={e} C={c} d={d} m={m}", x32.to(bf), wb)
     del x32
     # one bank shared by the sets (7.55 GB, far past L2): they differ in x
     sets = [[rnd((e, c, d), bf)] + wb for _ in range(2)]
@@ -833,15 +968,31 @@ def moe_gmm_phase(g, dev) -> dict:
     plain_ms = time_ms(lambda *a: moe_gmm_plain(*a), sets, iters=10)
     lib_ms = time_ms(lambda x, wg, wu, wd: torch.bmm(
         F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd), sets, iters=10)
+    simt_ms = time_ms(lambda *a: moe_gmm_cuda(*a, path="simt"), sets,
+                      iters=10)
     nbytes = 2 * (3 * e * d * m + 2 * e * c * d)
     b_ms, b_by = bound(6 * e * c * d * m, nbytes, "bfloat16")
+    print(f"[time] moe_gmm deepseek-v2 E={e} C={c} d={d} m={m} bf16: tensor "
+          f"cores {ms:.4f} ms, SIMT {simt_ms:.4f} ms (float32 "
+          f"{simt_f32_ms:.4f} ms), bmm chain {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    del sets, wb
+    # the tensor-core route off its 64-row tile at deepseek's widths; its
+    # own generator, so g's later draws stay as they were
+    g_tc = torch.Generator(device=dev)
+    g_tc.manual_seed(24)
+    w = bank(4, d, m, bf, g_tc)
+    for cc in (1, 8, 70, 130):
+        checked(f"tensor cores E=4 C={cc} d={d} m={m}",
+                rnd((4, cc, d), bf, gen=g_tc), w)
     return dict(
         name="moe_gmm", route="cuda",
         source="src/repro_torch/kernels/csrc/moe_gmm.cu",
         replaces="src/repro/kernels/moe_gmm.py:60", launches=None,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, dtype="bfloat16",
-        shape=f"E={e} C={c} d={d} m={m}")
+        shape=f"E={e} C={c} d={d} m={m}", kernel_route="tensor_core",
+        simt_ms=simt_ms, simt_f32_ms=simt_f32_ms)
 
 
 def router_score_phase(g, dev) -> dict:
@@ -906,73 +1057,105 @@ def decode_work(bh, t, d, pos, itemsize) -> tuple[float, float]:
         itemsize + 4
 
 
-# flash_attention's kernels in mangled names: the tensor-core one by (DP,
-# BK), the SIMT one by (element type, NJ)
-TC_KERNEL = re.compile(r"flash_attn_tcILi(\d+)ELi(\d+)E")
+# the tensor-core kernels in mangled names, by library: flash_attention's
+# by (DP, BK), the FFN core's (ffn_tc.cuh, in swiglu and moe_gmm) by (BN,
+# GLU, consumer warpgroups); and flash_attention's SIMT one by (element
+# type, NJ)
+FA_TC_KERNEL = re.compile(r"flash_attn_tcILi(\d+)ELi(\d+)E")
+FFN_TC_KERNEL = re.compile(r"ffn_tc_tileILi(\d+)ELb([01])ELi(\d+)E")
 SIMT_KERNEL = re.compile(r"flash_attn_kernelI(f|13__nv_bfloat16)Li(\d+)E")
-TC_INSTANCES = 3           # DP 64, 128, 256
+# tensor-core instantiations each library must hold: DP 64, 128, 256; BN
+# 64 and 128 of gate/up with one and two consumer warpgroups, and of down
+# with one
+TC_INSTANCES = {"flash_attention": 3, "swiglu": 6, "moe_gmm": 6}
 
 
 def tensor_core_report() -> None:
-    """Phase 1: a [tensor cores] line for each instantiation of
-    flash_attention's kernels, with its registers and spills (ptxas) and
-    the HGMMA instructions in its SASS (cuobjdump -sass on the library). A
-    tensor-core instantiation with no HGMMA or with spills fails."""
+    """Phase 1: a [tensor cores] line for each instantiation of the
+    tensor-core kernels (flash_attention's, and the FFN core's in swiglu
+    and moe_gmm) and of flash_attention's SIMT kernel, with its registers
+    and spills (ptxas) and the HGMMA instructions in its SASS (cuobjdump
+    -sass on the library). A tensor-core instantiation with no HGMMA or
+    with spills fails."""
     from repro_torch.kernels import build
 
     def label(name):
-        m = TC_KERNEL.search(name)
+        m = FA_TC_KERNEL.search(name)
         if m:
             return f"bf16 flash_attn_tc<DP {m[1]}, BK {m[2]}>", True
+        m = FFN_TC_KERNEL.search(name)
+        if m:
+            stage = "gate/up" if m[2] == "1" else "down"
+            return (f"bf16 ffn_tc_tile<BN {m[1]}, {stage}, {m[3]} consumer "
+                    f"warpgroups>"), True
         m = SIMT_KERNEL.search(name)
         if m:
             return (f"{'f32' if m[1] == 'f' else 'bf16'} flash_attn_kernel"
                     f"<NJ {m[2]}>"), False
         return None, False
 
-    usage, cur = {}, None
-    for line in build.build_log("flash_attention").splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            cur = m[1]
-            usage[cur] = {}
-        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
-                                     r"bytes spill loads", line)):
-            usage[cur]["spills"] = int(m[1]) + int(m[2])
-        elif cur and (m := re.search(r"Used (\d+) registers", line)):
-            usage[cur]["regs"] = int(m[1])
-        if "wgmma" in line or "setmaxnreg" in line or "Loss" in line:
-            print(f"[tensor cores] ptxas: {line.strip()}")
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(build.library_path("flash_attention"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    hgmma, cur = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = m[1]
-            hgmma[cur] = 0
-        elif cur and "HGMMA" in line:
-            hgmma[cur] += 1
-    n_tc = 0
-    for name in sorted(hgmma, key=lambda n: label(n)[0] or n):
-        what, tensor_core = label(name)
-        if what is None:
-            continue
-        use = usage.get(name, {})
-        print(f"[tensor cores] flash_attention {what}: {use.get('regs')} "
-              f"registers, {use.get('spills')} bytes spilled, "
-              f"{hgmma[name]} HGMMA in SASS")
-        if tensor_core:
-            n_tc += 1
-            if hgmma[name] == 0 or use.get("spills") != 0:
-                raise AssertionError(f"{what}: {hgmma[name]} HGMMA, "
-                                     f"{use.get('spills')} bytes spilled")
-    if n_tc != TC_INSTANCES:
-        raise AssertionError(f"{n_tc} tensor-core instantiations in the "
-                             f"SASS, want {TC_INSTANCES}")
+    for lib, want in TC_INSTANCES.items():
+        usage, cur = {}, None
+        for line in build.build_log(lib).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = m[1]
+                usage[cur] = {}
+            elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                         r"bytes spill loads", line)):
+                usage[cur]["spills"] = int(m[1]) + int(m[2])
+            elif cur and (m := re.search(r"Used (\d+) registers", line)):
+                usage[cur]["regs"] = int(m[1])
+            if "wgmma" in line or "setmaxnreg" in line or "Loss" in line:
+                print(f"[tensor cores] {lib} ptxas: {line.strip()}")
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build.library_path(lib))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        hgmma, cur = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = m[1]
+                hgmma[cur] = 0
+            elif cur and "HGMMA" in line:
+                hgmma[cur] += 1
+        n_tc = 0
+        for name in sorted(hgmma, key=lambda n: label(n)[0] or n):
+            what, tensor_core = label(name)
+            if what is None:
+                continue
+            use = usage.get(name, {})
+            print(f"[tensor cores] {lib} {what}: {use.get('regs')} "
+                  f"registers, {use.get('spills')} bytes spilled, "
+                  f"{hgmma[name]} HGMMA in SASS")
+            if tensor_core:
+                n_tc += 1
+                if hgmma[name] == 0 or use.get("spills") != 0:
+                    raise AssertionError(f"{lib} {what}: {hgmma[name]} "
+                                         f"HGMMA, {use.get('spills')} bytes "
+                                         f"spilled")
+        if n_tc != want:
+            raise AssertionError(f"{lib}: {n_tc} tensor-core instantiations "
+                                 f"in the SASS, want {want}")
+
+
+def ffn_routes(tag: str, want: str) -> dict:
+    """The route counts of swiglu_ffn and moe_gmm since the last reset of
+    the launch counts: every launch must have run the `want` kernel
+    ("tensor_core" in a bfloat16 phase, "simt" in a float32 one). Prints
+    and returns those of the kernels that ran."""
+    from repro_torch.kernels import ops
+    routes = {n: dict(ops.ROUTES[n]) for n in ("swiglu_ffn", "moe_gmm")
+              if ops.LAUNCHES[n]}
+    for name, counts in routes.items():
+        if counts != {want: ops.LAUNCHES[name]}:
+            raise AssertionError(f"{tag}: {name} routes {counts} for "
+                                 f"{ops.LAUNCHES[name]} launches, want all "
+                                 f"on {want}")
+    print(f"[routes] {tag}: {routes or 'no swiglu_ffn or moe_gmm launch'}")
+    return routes
 
 
 def flash_attention_phase(g, dev) -> dict:
@@ -1150,9 +1333,12 @@ def f32_agreement():
     from repro_torch.data import make_calibration_batch
     from repro_torch.models import build_model
 
+    from repro_torch.kernels import ops
+
     dev = torch.device("cuda")
     cfg = override(get_config(ARCH), dtype="float32")
     model = build_model(cfg, use_kernel=True, device=dev)
+    ops.reset_launches()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = model.init(gen)
@@ -1189,6 +1375,8 @@ def f32_agreement():
           f"tokens agree {agree}/{BATCH * GEN}")
     if not (torch.isfinite(lk).all() and err <= 1e-3 * scale):
         raise AssertionError("f32 kernel path disagrees with the plain path")
+    torch.cuda.synchronize()
+    ffn_routes("phase 3a f32 conversion and kernel path", "simt")
     return k_model, cparams, calib["tokens"]
 
 
@@ -1338,6 +1526,8 @@ def capacity_path(model, params, tag: str) -> dict:
               f"{'' if roomy else ' masked by keep'}| {err:.3e} (tol "
               f"{tol * scale:.3e})")
     print(f"[path A {tag}] launches {got}")
+    ffn_routes(f"path A {tag}",
+               "simt" if xf.dtype == torch.float32 else "tensor_core")
     return launches
 
 
@@ -1345,11 +1535,13 @@ def width_invariance() -> None:
     """Phase 4a: every dense product the engine runs (and the norms and the
     MoE gate), on the card in bfloat16 at qwen1.5-0.5b's and deepseek-v2's
     shapes, gives a row bitwise the same result alone and inside every
-    width the engine runs. Raw torch.matmul and torch.bmm, without the
+    width the engine runs; so do swiglu_ffn and moe_gmm on the tensor
+    cores, up to 512 rows. Raw torch.matmul and torch.bmm, without the
     port's fixed row tiles, are measured beside them."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models.layers import (_ONE_CALL_OK, PROBE_ROWS,
                                            head_matmul, matmul, rms_norm,
                                            unembed)
@@ -1415,10 +1607,32 @@ def width_invariance() -> None:
                 rms_norm(x[:, :n], torch.zeros(n, dtype=bf, device=dev))
                 for n in (dd, qr, r)], dim=-1)),
     }
+    # the two FFN kernels on the tensor cores: swiglu_ffn at qwen's dense
+    # FFN (the calibration forward's T = 512 included), and moe_gmm at C
+    # rows of 8 of qwen's converted experts and of deepseek's (x is (C, E,
+    # d) here, so that a row is one capacity slot of every expert)
+    em = moe.d_expert
+
+    def by_slot(x, ws):
+        return ops.moe_gmm(x.transpose(0, 1).contiguous(), *ws
+                           ).transpose(0, 1)
+
+    ffn_products = {
+        "swiglu_ffn, tensor cores (1024 x 2816 x 1024)": (
+            (d,), lambda x, ws=(w(d, cfg.d_ff), w(d, cfg.d_ff),
+                                w(cfg.d_ff, d)): ops.swiglu_ffn(x, *ws)),
+        "moe_gmm, tensor cores (8 experts of 1024 x 352)": (
+            (8, d), lambda x, ws=(w(8, d, m), w(8, d, m), w(8, m, d)):
+            by_slot(x, ws)),
+        "moe_gmm, tensor cores (8 experts of 5120 x 1536)": (
+            (8, dd), lambda x, ws=(w(8, dd, em), w(8, dd, em),
+                                   w(8, em, dd)): by_slot(x, ws)),
+    }
     # up to PROBE_ROWS a product may run as one call; above, in row tiles
     widths = sorted({1, 2, 3, 4, 8, 12, 16, 20, 24, 28, 32, 36, 64, 65, 128,
                      129, 192})
-    for name, (tail, fn) in {**products, **ds_products}.items():
+
+    def invariant(name, tail, fn, widths):
         x = torch.randn((max(widths), *tail), generator=g, device=dev).to(bf)
         bad = []
         for wd in widths:
@@ -1431,6 +1645,11 @@ def width_invariance() -> None:
             raise AssertionError(f"{name} is not width-invariant on the "
                                  f"card: widths {bad}")
         print(f"[invariance] {name}: bitwise width-invariant at {widths}")
+
+    for name, (tail, fn) in {**products, **ds_products}.items():
+        invariant(name, tail, fn, widths)
+    for name, (tail, fn) in ffn_products.items():
+        invariant(name, tail, fn, widths + [300, 512])
 
     def raw_breaks(fn, tail):
         x = torch.randn((max(widths), *tail), generator=g, device=dev)
@@ -1507,6 +1726,7 @@ def engine_phase() -> dict:
               f"{rep.prefix_hits}, backends {bc}, audit {rep.pool_audit}, "
               f"parity {res['parity']}")
     print(f"[e2e engine] launches over both runs {launches}")
+    ffn_routes("phase 4 engine bf16", "tensor_core")
     return launches
 
 
@@ -1621,6 +1841,7 @@ def deepseek_serving() -> dict:
           f"{GEN - 1} steps), peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, launches "
           f"{launches}")
+    ffn_routes("phase 5b deepseek static bf16", "tensor_core")
     del res
 
     torch.cuda.synchronize()
@@ -1650,6 +1871,7 @@ def deepseek_serving() -> dict:
           f"{rep.tpot_p95_s * 1e3:.2f} ms, overlap occupancy "
           f"{rep.overlap_occupancy:.3f}, backends {bc}, audit "
           f"{rep.pool_audit}, parity {res['parity']}, launches {launches}")
+    ffn_routes("phase 5c deepseek engine bf16", "tensor_core")
     # path A in bfloat16 on the model the engine served
     path_a = capacity_path(res["engine"].model, res["engine"].params, "bf16")
     return launches, path_a
@@ -1683,9 +1905,12 @@ def ssm_f32_agreement(arch: str) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
+    from repro_torch.kernels import ops
+
     dev = torch.device("cuda")
     free_device(f"{arch} f32")
     cfg = override(get_config(arch), dtype="float32")
+    ops.reset_launches()
     k_model = build_model(cfg, use_kernel=True, device=dev)
     p_model = build_model(cfg, use_kernel=False, device=dev)
     gen = torch.Generator(device=dev)
@@ -1740,6 +1965,8 @@ def ssm_f32_agreement(arch: str) -> None:
           f"{fwd_agree}/{SSM_FWD[0] * SSM_FWD[1]}; prefill {BATCH}x{PROMPT} "
           f"+ {steps} decode steps {worst:.3e} (tol 1e-3), greedy tokens "
           f"agree {agree}/{BATCH * (steps + 1)}")
+    torch.cuda.synchronize()
+    ffn_routes(f"phase 6a {arch} f32 kernel path", "simt")
 
 
 def ssm_serving(arch: str) -> dict:
@@ -1785,6 +2012,7 @@ def ssm_serving(arch: str) -> dict:
           f"{GEN - 1} steps), peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
           f"{launches} (reckoned {want})")
+    ffn_routes(f"phase 6 {arch} static bf16", "tensor_core")
     return launches
 
 
@@ -1934,7 +2162,14 @@ def attention_pair() -> dict:
         raise AssertionError(f"phase 7 flash_attention routes {routes}: "
                              f"want the 3 float32 calls on the SIMT kernel "
                              f"and the 3 bfloat16 ones on the tensor cores")
-    print(f"[phase 7] launches {launches}; flash_attention routes {routes}")
+    n_ffn = launches["swiglu_ffn"]
+    ffn = dict(ops.ROUTES["swiglu_ffn"])
+    if ffn != {"simt": n_ffn // 2, "tensor_core": n_ffn // 2}:
+        raise AssertionError(f"phase 7 swiglu_ffn routes {ffn} for {n_ffn} "
+                             f"launches: want half (float32) on the SIMT "
+                             f"kernel and half (bfloat16) on the tensor cores")
+    print(f"[phase 7] launches {launches}; flash_attention routes {routes}; "
+          f"swiglu_ffn routes {ffn}")
     return launches
 
 
@@ -2012,6 +2247,7 @@ def main(argv=None) -> int:
           f"{serve.PREFILL_REPEATS} warm), decode "
           f"{res['decode_tok_s']:.1f} tok/s ({BATCH} lanes, {GEN - 1} "
           f"steps), launches {launches}")
+    ffn_routes("phase 3b static qwen bf16", "tensor_core")
     for name in ("swiglu_ffn", "moe_gmm_ragged", "moe_gather"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "

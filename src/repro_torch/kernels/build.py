@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("swiglu", "moe_gmm", "moe_gather", "paged_attn", "mla_paged",
            "ssd_scan", "router_score", "flash_attention", "flash_decode")
-HEADERS = ("ffn_core.cuh", "convert.cuh", "wgmma.cuh")
+HEADERS = ("ffn_core.cuh", "ffn_tc.cuh", "convert.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -36,11 +36,14 @@ _L = ctypes.c_longlong
 # Every pointer and the stream as c_void_p, sizes as c_int, the attention
 # scale as c_float, element strides as c_longlong. A source may export more
 # than one entry: moe_gmm.cu holds both grouped expert FFNs of the Pallas
-# file it ports, over one shared core, so they build in one nvcc process.
+# file it ports, over shared cores, so they build in one nvcc process; the
+# `_tc_launch` entries are the tensor-core routes of their kernels.
 SIGNATURES = {
     "swiglu_ffn_launch": ("swiglu", [_P] * 6 + [_I] * 5 + [_P]),
+    "swiglu_ffn_tc_launch": ("swiglu", [_P] * 6 + [_I] * 4 + [_P]),
     "moe_gmm_ragged_launch": ("moe_gmm", [_P] * 7 + [_I] * 7 + [_P]),
     "moe_gmm_launch": ("moe_gmm", [_P] * 6 + [_I] * 6 + [_P]),
+    "moe_gmm_tc_launch": ("moe_gmm", [_P] * 6 + [_I] * 5 + [_P]),
     "moe_gather_launch": ("moe_gather", [_P] * 7 + [_I] * 7 + [_P]),
     "paged_attn_decode_launch": ("paged_attn",
                                  [_P] * 6 + [_I] * 7 + [_F, _I, _P]),

@@ -53,6 +53,33 @@ def check_ids(ids: torch.Tensor, n: int, device: torch.device) -> None:
                          f"{ids.device}")
 
 
+def ffn_route(dtype: torch.dtype, d: int, m: int) -> str:
+    """The CUDA kernel that serves a swiglu_ffn or moe_gmm call:
+    "tensor_core" (csrc/ffn_tc.cuh) for bfloat16 with d and m multiples of
+    8, the 16-byte row strides its TMA loads need; else "simt"
+    (csrc/ffn_core.cuh: float32 at any width, bfloat16 off that grid)."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and m % 8 == 0:
+        return "tensor_core"
+    return "simt"
+
+
+def tc_or_simt(routed: str, path) -> str:
+    """The kernel a call runs: the route's, or "simt" where the caller asks
+    for it. The tensor-core route cannot be forced on operands off it."""
+    if path is None or path == routed:
+        return routed
+    if path == "simt":
+        return path
+    raise ValueError(f"path {path!r} cannot serve operands routed to "
+                     f"{routed!r}")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its base is off the 16-byte grid that TMA
+    loads need (a contiguous view may start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

@@ -27,10 +27,13 @@
 // The h round trip costs 2 * rows * m * sizeof(T) bytes of device traffic
 // that the TPU kernel keeps in VMEM (h is 2.9 MB at the calibration
 // forward's T=512, f=2816 in bf16, so 5.8 MB moved, beside 17.3 MB of
-// weights); fusing it back is later work. Each block computes a BM x BN output tile with a BK-deep shared-
-// memory K loop and TM x TN fp32 accumulators per thread (SIMT FMA, no
-// tensor cores yet): simple and exact in f32, far from the bf16 tensor-core
-// bound, which the tables in PERF.md state beside the measured times.
+// weights); fusing it back is later work. Each block computes a BM x BN
+// output tile with a BK-deep shared-memory K loop and TM x TN fp32
+// accumulators per thread (SIMT FMA): exact in f32, far from the bf16
+// tensor-core bound. It serves float32 for all four kernels, bf16 for
+// moe_gmm_ragged and moe_gather, and bf16 for swiglu_ffn and moe_gmm only
+// where d or m is off the 8 grid; bf16 swiglu_ffn and moe_gmm otherwise run
+// on the tensor cores (ffn_tc.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

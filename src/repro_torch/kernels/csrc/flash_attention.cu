@@ -631,52 +631,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// (so the library links no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// a (bh, rows, D) bf16 tensor as boxes of 64 columns x box_rows rows, 128-
-// byte swizzled; boxes past its edges are filled with zeros
-bool tensor_map(CUtensorMap* map, const void* base, int bh, int rows, int D,
-                int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DP, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int bh, int S, int T_len, int D, float scale, int causal,
@@ -684,9 +638,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   constexpr int smem = Smem<DP, BK>::kBytes;
   static_assert(smem <= kMaxSmem, "the tiles fit an H100 block");
   CUtensorMap tmq, tmk, tmv;
-  if (!tensor_map(&tmq, q, bh, S, D, kRows) ||
-      !tensor_map(&tmk, k, bh, T_len, D, BK) ||
-      !tensor_map(&tmv, v, bh, T_len, D, BK))
+  if (!wg::tensor_map(&tmq, q, bh, S, D, kRows) ||
+      !wg::tensor_map(&tmk, k, bh, T_len, D, BK) ||
+      !wg::tensor_map(&tmv, v, bh, T_len, D, BK))
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attn_tc<DP, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,

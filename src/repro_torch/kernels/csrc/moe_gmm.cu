@@ -1,7 +1,7 @@
 // The two grouped expert FFNs of repro/kernels/moe_gmm.py on Hopper, one
-// library with two entry points over the shared core (ffn_core.cuh): both
-// Pallas kernels live in one file and share one body, so their ports share
-// one translation unit and one nvcc process.
+// library over the shared cores (ffn_core.cuh, SIMT; ffn_tc.cuh, tensor
+// cores): both Pallas kernels live in one file and share one body, so
+// their ports share one translation unit and one nvcc process.
 //
 // moe_gmm_ragged_launch replaces moe_gmm_ragged, the grouped routed experts
 // over the expert-sorted, block-aligned ragged layout at prefill.
@@ -16,6 +16,7 @@
 // memory (2 x P x m x 2 B) and the all-zero padding rows of the layout (at
 // most 63 per expert) are the known costs of this first version.
 #include "ffn_core.cuh"
+#include "ffn_tc.cuh"
 
 extern "C" int moe_gmm_ragged_launch(const void* xp, const void* owner,
                                      const void* wg, const void* wu,
@@ -37,11 +38,18 @@ extern "C" int moe_gmm_ragged_launch(const void* xp, const void* owner,
 //
 // Bound on an H100 at deepseek-v2's expert widths (E 160, C 8, d 5120,
 // m 1536, bf16): 7.55 GB of weights against 60 GFLOP, so memory-bound
-// (about 2.25 ms at 3.35 TB/s). Each weight tile is read by exactly one
-// block (one expert's row tiles, and at C <= 64 there is one), so the banks
-// stream from device memory once. At C = 8 a 64-row tile computes 56 masked
-// rows: the SIMT FMA work is 8x the useful work, the first version's known
-// cost beside the h round trip.
+// (about 2.26 ms at 3.35 TB/s). Two entries, chosen by moe_gmm.route(dtype,
+// d, m) in the wrapper:
+// * moe_gmm_tc_launch: bfloat16 with d and m multiples of 8 (every
+//   config's expert widths), on the tensor cores through ffn_tc.cuh. Its
+//   3-D tensor maps over (E, C, d) read zeros past C, so at C = 8 a 64-row
+//   tile's 56 empty rows cost no bytes, and their products (8x the useful
+//   work, about 0.49 ms of tensor-core time) hide under the 2.26 ms of
+//   weight streaming. Each weight tile is read by one block.
+// * moe_gmm_launch: float32, and bf16 off that grid, on the SIMT core
+//   (rule kCapacity). At C = 8 its 64-row tiles do 8x the useful FMA work
+//   in fp32 (about 7.2 ms at 67 TFLOP/s), which is why it runs near 24 ms
+//   in bf16 at deepseek's widths.
 extern "C" int moe_gmm_launch(const void* xbuf, const void* wg,
                               const void* wu, const void* wd, void* h,
                               void* out, int num_experts, int capacity,
@@ -51,4 +59,14 @@ extern "C" int moe_gmm_launch(const void* xbuf, const void* wg,
                             num_experts * capacity, d, m, num_experts,
                             ffn::kCapacity, /*block_c=*/capacity,
                             /*top_k=*/1, act, stream);
+}
+
+// The tensor-core route of moe_gmm_launch: xbuf, the banks, h and out
+// bfloat16, contiguous and 16-byte aligned; d and m multiples of 8.
+extern "C" int moe_gmm_tc_launch(const void* xbuf, const void* wg,
+                                 const void* wu, const void* wd, void* h,
+                                 void* out, int num_experts, int capacity,
+                                 int d, int m, int act, void* stream) {
+  return ffn_tc::run(xbuf, wg, wu, wd, h, out, num_experts, capacity, d, m,
+                     act, stream);
 }

@@ -3,7 +3,8 @@
 // reallocation between warpgroups, the 128-byte-swizzled shared tile
 // layout that the wgmma descriptors name, the descriptors themselves, and
 // warpgroup matrix multiplies (wgmma.mma_async) for bf16 operands with
-// fp32 accumulators.
+// fp32 accumulators; and, on the host, the TMA tensor maps those tiles
+// are loaded through.
 //
 // Layout. A tile of R rows by DP bf16 columns (DP a multiple of 64) lies in
 // shared memory as DP / 64 column blocks of R rows x 128 bytes each, as a
@@ -16,6 +17,8 @@
 // being keys and its columns D.
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace wg {
@@ -127,7 +130,10 @@ __device__ __forceinline__ void reg_fence(uint32_t (&d)[N][4]) {
 // The register A of m64k16 is the same pattern over 16 columns, two bf16
 // a register, so a packed score fragment feeds the next product as it is.
 
-// d (+)= A B^T, A (64 x 16) and B (N x 16) both K-major in shared memory
+// d (+)= A B, A (64 x 16) K-major in shared memory; B (16 x N) K-major
+// (kTransB 0: read as B^T of an N x 16 tile, as K in Q K^T) or MN-major
+// (kTransB 1: N contiguous, as a weight bank's (K, N) rows)
+template <int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int scale_d) {
   asm volatile(
@@ -137,7 +143,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -146,10 +152,11 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 
-// d (+)= A B^T, A (64 x 16) and B (N x 16) both K-major in shared memory
+// as wgmma_ss_n64, 128 columns
+template <int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                              uint64_t db, int scale_d) {
   asm volatile(
@@ -163,7 +170,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -180,7 +187,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 
 // d += A B, A (64 x 16) in registers, B (16 x N) MN-major in shared memory
@@ -300,11 +307,11 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int N>
+template <int N, int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
-  else wgmma_ss_n128(d, da, db, scale_d);
+  if constexpr (N == 64) wgmma_ss_n64<kTransB>(d, da, db, scale_d);
+  else wgmma_ss_n128<kTransB>(d, da, db, scale_d);
 }
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
@@ -313,6 +320,57 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   else wgmma_rs_n256(d, a, db);
+}
+
+// ---- host: tensor maps ----------------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (so the library links no -lcuda). Its static is one symbol shared by
+// every library that includes this header, which is harmless here: the
+// pointer is the driver's, the same for the whole process.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// an (outer, rows, inner) bf16 tensor, inner contiguous, as boxes of 64
+// inner x box_rows rows (the layout above: 128-byte swizzled); boxes past
+// its edges are filled with zeros. False if the map cannot be encoded.
+inline bool tensor_map(CUtensorMap* map, const void* base, int outer,
+                       int rows, int inner, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2,
+                                 (cuuint64_t)rows * inner * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace wg

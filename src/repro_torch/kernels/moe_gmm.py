@@ -8,22 +8,33 @@ Port of the two Pallas kernels of ``repro/kernels/moe_gmm.py``:
 * ``moe_gmm``: dense (E, C, d) capacity buffers, row block e runs expert
   e's GLU FFN (the bounded-buffer path of ``core.experts``).
 
-Both CUDA kernels are entry points of ``csrc/moe_gmm.cu`` over the shared
-core ``csrc/ffn_core.cuh``; the plain versions below repeat their
-arithmetic: g and u in fp32, h rounded to the input dtype, the down product
-summed in fp32 and cast once.
+Both CUDA kernels are entry points of ``csrc/moe_gmm.cu`` over the SIMT
+core ``csrc/ffn_core.cuh``. ``moe_gmm`` has a second one, and
+``route(dtype, d, m)`` picks between them: bfloat16 with d and m multiples
+of 8 (every config's expert widths) runs on the tensor cores
+(``csrc/ffn_tc.cuh``: TMA and ``wgmma``), everything else on the SIMT core.
+The plain versions below repeat their arithmetic: g and u in fp32, h
+rounded to the input dtype, the down product summed in fp32 and cast once.
 """
 from __future__ import annotations
+
+from collections import Counter
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (act, act_code, check_float_operands,
-                                        check_ids, raise_on_error, stream_ptr)
+from repro_torch.kernels.common import (act, act_code, aligned16,
+                                        check_float_operands, check_ids,
+                                        ffn_route, raise_on_error,
+                                        stream_ptr, tc_or_simt)
 
 # rows of one CUDA tile (kBM in csrc/ffn_core.cuh): the kernel takes exactly
 # this layout block, so every tile has one owner
 CUDA_TILE_ROWS = 64
+# moe_gmm's launches of each route since the last reset
+ROUTE_LAUNCHES: Counter = Counter()
+route = ffn_route     # route(dtype, d, m): "tensor_core" or "simt"
 
 
 def moe_gmm_ragged_plain(xp: torch.Tensor, owner: torch.Tensor,
@@ -80,11 +91,12 @@ def moe_gmm_plain(xbuf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 
 def moe_gmm_cuda(xbuf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                 wd: torch.Tensor, activation: str = "swiglu"
-                 ) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream. Any C and m: the
-    kernel masks the rows past C in each expert's last row tile and the
-    columns past m, so nothing is padded."""
+                 wd: torch.Tensor, activation: str = "swiglu",
+                 path: Optional[str] = None) -> torch.Tensor:
+    """Launch the kernel that ``route`` names (or ``path``: "simt" runs the
+    SIMT core on any operands, to time it beside the other) on the current
+    stream. Any C and m: the kernels mask the rows past C in each expert's
+    last row tile and the columns past m, so nothing is padded."""
     dt, dev = check_float_operands(xbuf, wg, wu, wd)
     if xbuf.dim() != 3:
         raise ValueError(f"xbuf must be (E, C, d); got {tuple(xbuf.shape)}")
@@ -95,11 +107,20 @@ def moe_gmm_cuda(xbuf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         raise ValueError(f"banks wg {tuple(wg.shape)}, wu {tuple(wu.shape)},"
                          f" wd {tuple(wd.shape)} do not match xbuf "
                          f"{tuple(xbuf.shape)}")
+    path = tc_or_simt(route(xbuf.dtype, d, m), path)
     h = torch.empty((e, c, m), dtype=xbuf.dtype, device=dev)
     out = torch.empty((e, c, d), dtype=xbuf.dtype, device=dev)
-    err = build.entry("moe_gmm_launch")(
-        xbuf.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-        h.data_ptr(), out.data_ptr(), e, c, d, m, dt, act_code(activation),
-        stream_ptr(dev))
-    raise_on_error(err, "moe_gmm")
+    if path == "tensor_core":
+        xbuf, wg, wu, wd = (aligned16(a) for a in (xbuf, wg, wu, wd))
+        err = build.entry("moe_gmm_tc_launch")(
+            xbuf.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+            h.data_ptr(), out.data_ptr(), e, c, d, m, act_code(activation),
+            stream_ptr(dev))
+    else:
+        err = build.entry("moe_gmm_launch")(
+            xbuf.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+            h.data_ptr(), out.data_ptr(), e, c, d, m, dt,
+            act_code(activation), stream_ptr(dev))
+    raise_on_error(err, f"moe_gmm ({path})")
+    ROUTE_LAUNCHES[path] += 1
     return out

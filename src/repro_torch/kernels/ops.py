@@ -22,6 +22,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_gmm as _gmm
+from repro_torch.kernels import swiglu as _swiglu
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_decode import (flash_decode_cuda,
@@ -43,6 +46,11 @@ KERNELS = ("swiglu_ffn", "moe_gmm_ragged", "moe_gather", "paged_attn_decode",
            "mla_paged_decode", "ssd_scan", "moe_gmm", "router_score",
            "flash_attention", "flash_decode")
 LAUNCHES = {name: 0 for name in KERNELS}
+# the kernels with two CUDA routes: launches of each route (which kernel a
+# call ran), reset with LAUNCHES
+ROUTES = {"swiglu_ffn": _swiglu.ROUTE_LAUNCHES,
+          "moe_gmm": _gmm.ROUTE_LAUNCHES,
+          "flash_attention": _fa.ROUTE_LAUNCHES}
 
 # Row tile of the ragged expert layout ``moe_gmm_ragged`` consumes: one
 # constant per process, never derived from a shape, because the layout block
@@ -75,6 +83,8 @@ def ragged_block_c() -> int:
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    for counts in ROUTES.values():
+        counts.clear()
 
 
 def _route(t: torch.Tensor) -> bool:

@@ -486,3 +486,121 @@ def test_cuda_flash_pair_rejects_bad_operands():
         tops.flash_decode(q[:, :2].contiguous(), q, q, 3)
     with pytest.raises(ValueError):                   # v on the CPU
         tops.flash_decode(q[:, :1].contiguous(), q, q.cpu(), 3)
+
+
+def _bf16_case(g, dev, *shapes):
+    """bf16 operands of the given shapes, each scaled by its fan-in (the
+    second-to-last dim; 1 for the first, the input)."""
+    return [(torch.randn(s, generator=g, device=dev) *
+             (s[-2] ** -0.5 if i else 1.0)).to(torch.bfloat16)
+            for i, s in enumerate(shapes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4, 100, 512])
+@pytest.mark.parametrize("d,f", [(1024, 2816), (2048, 8192)])
+@pytest.mark.parametrize("act", ["swiglu", "geglu"])
+def test_cuda_swiglu_ffn_tensor_cores_match_plain(t, d, f, act):
+    """swiglu_ffn's bfloat16 route at qwen1.5-0.5b's and zamba2-1.2b's
+    widths, T on and off the 64-row tile: each call on the tensor cores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.swiglu import ROUTE_LAUNCHES
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    x, wg, wu, wd = _bf16_case(g, dev, (t, d), (d, f), (d, f), (f, d))
+    tops.reset_launches()
+    got = tops.swiglu_ffn(x, wg, wu, wd, activation=act)
+    ref = swiglu_ffn_plain(x, wg, wu, wd, act)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["swiglu_ffn"] == 1
+    assert ROUTE_LAUNCHES == {"tensor_core": 1}
+    assert got.shape == (t, d) and got.dtype == torch.bfloat16
+    _close(got, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 8, 70, 130])
+@pytest.mark.parametrize("e,d,m", [(8, 1024, 352), (8, 5120, 1536)])
+def test_cuda_moe_gmm_tensor_cores_match_plain(c, e, d, m):
+    """moe_gmm's bfloat16 route at qwen1.5-0.5b's converted expert width
+    and deepseek-v2's (whose down stage takes 128-wide column tiles), C on
+    and off the 64-row tile: each call on the tensor cores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.moe_gmm import ROUTE_LAUNCHES, moe_gmm_plain
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    act = "geglu" if c == 70 else "swiglu"
+    xbuf, wg, wu, wd = _bf16_case(g, dev, (e, c, d), (e, d, m), (e, d, m),
+                                  (e, m, d))
+    tops.reset_launches()
+    got = tops.moe_gmm(xbuf, wg, wu, wd, activation=act)
+    ref = moe_gmm_plain(xbuf, wg, wu, wd, act)
+    torch.cuda.synchronize()
+    assert ROUTE_LAUNCHES == {"tensor_core": 1}
+    assert got.shape == (e, c, d) and got.dtype == torch.bfloat16
+    _close(got, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_ffn_tensor_cores_clone_misaligned_views():
+    """A contiguous view whose base is off the 16-byte grid TMA needs is
+    copied by the wrapper, not refused and not sent to the SIMT core."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels import moe_gmm, swiglu
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    t, d, f = 37, 256, 192
+    x, wg, wu, wd = _bf16_case(g, dev, (t * d + 1,), (d, f), (d, f), (f, d))
+    x = x[1:].view(t, d)                             # 2 bytes off the grid
+    wd = torch.cat([wd.flatten()[:3], wd.flatten()])[3:].view(f, d)
+    assert x.data_ptr() % 16 and wd.data_ptr() % 16
+    tops.reset_launches()
+    _close(tops.swiglu_ffn(x, wg, wu, wd),
+           swiglu.swiglu_ffn_plain(x, wg, wu, wd), torch.bfloat16)
+    xbuf = x[:36].view(4, 9, d)                      # E 4, C 9, off the grid
+    bg, bu, bd = (a[None].expand(4, -1, -1).contiguous() for a in (wg, wu, wd))
+    bd = torch.cat([bd.flatten()[:1], bd.flatten()])[1:].view(bd.shape)
+    assert xbuf.data_ptr() % 16 and bd.data_ptr() % 16
+    _close(tops.moe_gmm(xbuf, bg, bu, bd),
+           moe_gmm.moe_gmm_plain(xbuf, bg, bu, bd), torch.bfloat16)
+    torch.cuda.synchronize()
+    assert swiglu.ROUTE_LAUNCHES == {"tensor_core": 1}
+    assert moe_gmm.ROUTE_LAUNCHES == {"tensor_core": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_ffn_tensor_cores_are_row_invariant():
+    """A row's result on the tensor cores does not depend on the other
+    rows of the call, bitwise: swiglu_ffn's rows alone against the same
+    rows inside T = 512 (and T = 100); moe_gmm at C = 1 against C = 8 and C
+    = 70, at qwen's converted and deepseek-v2's expert widths. Past 64 rows
+    an expert's gate/up blocks hold two warpgroups, so T 100 and 512 and C
+    70 cross that switch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    d, f = 1024, 2816
+    x, wg, wu, wd = _bf16_case(g, dev, (512, d), (d, f), (d, f), (f, d))
+    full = tops.swiglu_ffn(x, wg, wu, wd)
+    assert torch.equal(tops.swiglu_ffn(x[:100], wg, wu, wd), full[:100])
+    for r in (0, 1, 63, 64, 300, 511):
+        assert torch.equal(tops.swiglu_ffn(x[r:r + 1], wg, wu, wd),
+                           full[r:r + 1]), r
+    for e, d, m in ((8, 1024, 352), (8, 5120, 1536)):
+        xbuf, bg, bu, bd = _bf16_case(g, dev, (e, 70, d), (e, d, m),
+                                      (e, d, m), (e, m, d))
+        full = tops.moe_gmm(xbuf, bg, bu, bd)
+        assert torch.equal(tops.moe_gmm(xbuf[:, :8].contiguous(), bg, bu,
+                                        bd), full[:, :8])
+        for c in (0, 3, 7, 69):
+            one = tops.moe_gmm(xbuf[:, c:c + 1].contiguous(), bg, bu, bd)
+            assert torch.equal(one, full[:, c:c + 1]), (d, c)
+    torch.cuda.synchronize()

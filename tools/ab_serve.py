@@ -10,8 +10,13 @@ the static mode (4 x 32 prefill, 16 generated) and the paged overlapped
 engine (8 requests, as ``chip_smoke.py`` phase 4 runs it, without its
 parity replays). It prints one JSON line per root with conversion seconds,
 prefill ms, decode tok/s, and the engine's wall, goodput, TTFT and TPOT.
+With ``--arch ARCH`` it serves that arch instead, unconverted and in the
+static mode only (4 x 32 prefill, 16 generated), as ``chip_smoke.py``
+phase 6 serves mamba2-370m and zamba2-1.2b, and prints its prefill ms and
+decode tok/s.
 
     python3 tools/ab_serve.py build/parent . . build/parent
+    python3 tools/ab_serve.py --arch zamba2-1.2b build/parent . . build/parent
 """
 from __future__ import annotations
 
@@ -33,7 +38,11 @@ from repro_torch.launch import serve
 static, engine = json.loads(sys.argv[1])
 with contextlib.redirect_stdout(io.StringIO()):
     s = serve.run(static)
-    e = serve.run(engine)
+    e = serve.run(engine) if engine else None
+if e is None:
+    print(json.dumps({"prefill_ms": s["prefill_ms"],
+                      "decode_tok_s": s["decode_tok_s"]}))
+    raise SystemExit(0)
 rep = e["report"]
 print(json.dumps({
     "convert_s": s["convert_s"], "prefill_ms": s["prefill_ms"],
@@ -47,6 +56,10 @@ print(json.dumps({
 
 
 def main(roots) -> int:
+    static, engine = STATIC, ENGINE
+    if roots[:1] == ["--arch"] and len(roots) > 1:
+        static = ["--arch", roots[1]] + STATIC[STATIC.index("--batch"):]
+        engine, roots = None, roots[2:]
     if not roots:
         print(__doc__.strip().splitlines()[-1].strip(), file=sys.stderr)
         return 2
@@ -58,7 +71,7 @@ def main(roots) -> int:
         src = os.path.join(os.path.abspath(root), "src")
         env = dict(os.environ, PYTHONPATH=src)
         res = subprocess.run([sys.executable, "-c", CHILD,
-                              json.dumps([STATIC, ENGINE])], env=env,
+                              json.dumps([static, engine])], env=env,
                              capture_output=True, text=True)
         if res.returncode:
             sys.stderr.write(res.stderr[-4000:])
