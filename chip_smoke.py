@@ -10,8 +10,9 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      ``src/repro_torch/kernels/csrc`` with nvcc, one process per source,
      all started together; ptxas's registers and spills, and for each
      instantiation of flash_attention's two kernels and of the tensor-core
-     FFN core (ffn_tc.cuh, in swiglu and moe_gmm) a ``[tensor cores]``
-     line with its registers, spills and the count of HGMMA (wgmma)
+     FFN core (ffn_tc.cuh, in swiglu, moe_gmm and moe_gather, by row rule)
+     a ``[tensor cores]`` line with its registers, spills and the count of
+     HGMMA (wgmma)
      instructions in the library's SASS (cuobjdump): a tensor-core
      instantiation with no HGMMA, or with spills, fails the run;
   2. each kernel against its plain PyTorch version on the card at the shapes
@@ -24,9 +25,12 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      in bfloat16 beside its plain version, a PyTorch yardstick (library_ms,
      null where no one PyTorch call computes the function) and its bound
      on the card; moe_gmm_ragged and moe_gather also at deepseek-v2's
-     expert shapes; swiglu_ffn and moe_gmm, which have a tensor-core kernel
-     for bfloat16 and the SIMT one for float32, with each call checked to
-     run the kernel its route names, and timed on both;
+     expert shapes (moe_gather also at the widest mixed step), with a
+     gather row, the ragged row of the same (token, expert) and moe_gmm's
+     capacity row held bitwise equal there; the four FFN kernels, which
+     have a tensor-core kernel for bfloat16 and the SIMT one for float32,
+     with each call checked to run the kernel its route names, and timed
+     on both (at qwen's shapes also as calls replayed from a CUDA graph);
   3. the static path at the full width of qwen1.5-0.5b (24 layers, seeded
      random weights): (a) in float32 the kernel path against the plain path
      on one converted model (prefill logits within 1e-3 max|logit|, greedy
@@ -43,7 +47,10 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      each dense product of the engine (and the norm) is checked bitwise
      width-invariant on the card (a row alone and inside every width the
      engine runs), at qwen1.5-0.5b's and deepseek-v2's shapes, and
-     swiglu_ffn and moe_gmm on the tensor cores up to 512 rows; then two
+     the four FFN kernels on the tensor cores up to 512 rows (tokens, for
+     the routed experts), and at qwen's and deepseek's expert widths a
+     (token, expert) pair's row bitwise the same through moe_gather,
+     moe_gmm_ragged and moe_gmm; then two
      runs through the CLI's entry point (overlapped + paged, with parity
      replays: sequential, contiguous, and in the second run prefix reuse
      off), with the launch counts zeroed before and read after; every
@@ -88,8 +95,8 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      contiguous cache of 1100, one Model.decode_step, then layer 0's cache
      and the step's post-RoPE query (BH 128, T 1100, pos 1024) against the
      plain version and decode_attention; tolerances as in phase 2.
-The ``[routes]`` lines of phases 3a, 3b, 4, 5 (path A, 5b, 5c) and 6
-count which kernel each launch of swiglu_ffn and moe_gmm ran: every
+The ``[routes]`` lines of phases 3a, 3b, 4, 5 (5a, path A, 5b, 5c) and 6
+count which kernel each launch of the four FFN kernels ran: every
 bfloat16 launch on the tensor cores, every float32 one on the SIMT core
 (phase 7 checks half and half), or the run fails.
 Phase 2 checks swiglu_ffn at T 512 in float32 and bfloat16 and, in
@@ -142,6 +149,8 @@ ROOT = Path(__file__).resolve().parent
 # outside them, and HBM3 bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# the kernels of the GLU-FFN cores (ffn_tc.cuh for bf16, ffn_core.cuh)
+FFN_KERNELS = ("swiglu_ffn", "moe_gmm_ragged", "moe_gather", "moe_gmm")
 
 ARCH = "qwen1.5-0.5b"
 CMOE = "S3A3E8"
@@ -170,6 +179,9 @@ DS_STATIC_ARGS = ["--arch", DS_ARCH, "--layers", str(DS_LAYERS),
                   "--gen", str(GEN), "--seed", "0"]
 DS_ENGINE_ARGS = ["--arch", DS_ARCH, "--layers", str(DS_LAYERS)] + \
     ENGINE_ARGS[ENGINE_ARGS.index("--continuous"):]
+# the widest fused step the engine sends to gather at deepseek-v2: its
+# break-even, E / k = 160 / 6 tokens (core.experts.select_backend)
+DS_MIXED_TOKENS = 26
 # mla_paged_decode at the engine's decode shape and at a long context
 # (r = kv_lora_rank, dr = qk_rope_head_dim, scale (dn + dr)^-0.5)
 MLA_MAIN = dict(rows=4, heads=128, r=512, dr=64, bs=16, depth=80)
@@ -266,6 +278,43 @@ def graph_ms(fn, inputs: list, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def routed(name: str, want: str, call):
+    """call() with `name`'s route counts cleared; fails unless it ran the
+    `want` kernel once. Returns what call() returned."""
+    from repro_torch.kernels import ops
+    ops.ROUTES[name].clear()
+    out = call()
+    if dict(ops.ROUTES[name]) != {want: 1}:
+        raise AssertionError(f"{name}: routes {dict(ops.ROUTES[name])}, "
+                             f"want {{{want!r}: 1}}")
+    return out
+
+
+def both_routes(name, sets, kernel, simt, plain, chain, b_ms, b_by,
+                iters=50, graphs=True) -> dict:
+    """Times one FFN kernel's two CUDA routes on the same bfloat16 sets
+    (`kernel` through ops, which routes to the tensor cores; `simt`
+    forced), its plain version and its PyTorch chain, back to back and
+    (the kernel and the chain) as calls replayed from one CUDA graph, where
+    back-to-back times are host-bound. Prints a [time] line; returns the
+    record's timing keys."""
+    ms = time_ms(kernel, sets, iters)
+    simt_ms = time_ms(simt, sets, iters)
+    plain_ms = time_ms(plain, sets, iters)
+    lib_ms = time_ms(chain, sets, iters)
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, simt_ms=simt_ms)
+    in_graph = ["", ""]
+    if graphs:
+        out.update(graph_ms=graph_ms(kernel, sets, iters),
+                   library_graph_ms=graph_ms(chain, sets, iters))
+        in_graph = [f" ({out[key]:.4f} ms in a CUDA graph)"
+                    for key in ("graph_ms", "library_graph_ms")]
+    print(f"[time] {name} bf16: tensor cores {ms:.4f} ms{in_graph[0]}, SIMT "
+          f"{simt_ms:.4f} ms, plain {plain_ms:.4f} ms, chain {lib_ms:.4f} "
+          f"ms{in_graph[1]}, bound {b_ms:.4f} ms ({b_by})")
+    return out
+
+
 def check(name: str, got, ref, dtype, sentinel_rows=None) -> float:
     """Kernel against plain on the same inputs; returns max |err|."""
     import torch
@@ -301,8 +350,10 @@ def kernel_phase() -> dict:
 
     from repro_torch.core.experts import ragged_layout, ragged_scatter
     from repro_torch.kernels import ops
-    from repro_torch.kernels.moe_gather import moe_gather_plain
-    from repro_torch.kernels.moe_gmm import moe_gmm_ragged_plain
+    from repro_torch.kernels.moe_gather import (moe_gather_cuda,
+                                                moe_gather_plain, route)
+    from repro_torch.kernels.moe_gmm import (moe_gmm_ragged_cuda,
+                                             moe_gmm_ragged_plain)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -341,17 +392,16 @@ def kernel_phase() -> dict:
     # --- moe_gmm_ragged: routed experts at prefill (4 x 32 tokens, top-3)
     for dt in (torch.float32, torch.bfloat16):
         xp, owner, wg, wu, wd = gmm_set(dt)
-        err = check("moe_gmm_ragged",
-                    ops.moe_gmm_ragged(xp, owner, wg, wu, wd, block_c=block),
-                    moe_gmm_ragged_plain(xp, owner, wg, wu, wd, act, block),
-                    dt)
+        err = check("moe_gmm_ragged", routed(
+            "moe_gmm_ragged", route(dt, d, m),
+            lambda: ops.moe_gmm_ragged(xp, owner, wg, wu, wd, block_c=block)),
+            moe_gmm_ragged_plain(xp, owner, wg, wu, wd, act, block), dt)
     live = BATCH * PROMPT * top_k
     nbytes = 2 * (3 * n_e * d * m + 2 * live * d)
     sets = [gmm_set(torch.bfloat16) for _ in range(n_sets(nbytes))]
-    ms = time_ms(lambda xp, o, wg, wu, wd: ops.moe_gmm_ragged(
-        xp, o, wg, wu, wd, block_c=block), sets)
-    plain_ms = time_ms(lambda xp, o, wg, wu, wd: moe_gmm_ragged_plain(
-        xp, o, wg, wu, wd, act, block), sets)
+
+    def gmm_kernel(xp, o, wg, wu, wd):
+        return ops.moe_gmm_ragged(xp, o, wg, wu, wd, block_c=block)
 
     def gmm_library(xp, o, wg, wu, wd):
         own = o.long()
@@ -359,32 +409,32 @@ def kernel_phase() -> dict:
         h = F.silu(torch.bmm(xb, wg[own])) * torch.bmm(xb, wu[own])
         return torch.bmm(h, wd[own])
 
-    lib_ms = time_ms(gmm_library, sets)
     b_ms, b_by = bound(6 * live * d * m, nbytes, "bfloat16")
     records["moe_gmm_ragged"] = dict(
         name="moe_gmm_ragged", route="cuda",
         source="src/repro_torch/kernels/csrc/moe_gmm.cu",
         replaces="src/repro/kernels/moe_gmm.py:124", launches=None,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, dtype="bfloat16",
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, dtype="bfloat16",
         shape=f"P={xp.shape[0]} live rows={live} E={n_e} d={d} m={m} "
-              f"block_c={block}")
+              f"block_c={block}", kernel_route="tensor_core",
+        **both_routes("moe_gmm_ragged", sets, gmm_kernel,
+                      lambda *a: moe_gmm_ragged_cuda(*a, "swiglu", block,
+                                                     path="simt"),
+                      lambda *a: moe_gmm_ragged_plain(*a, act, block),
+                      gmm_library, b_ms, b_by))
 
     # --- moe_gather: routed experts at decode (4 tokens, top-3)
     for dt in (torch.float32, torch.bfloat16):
         xf, ids, wg, wu, wd = gather_set(dt, sentinels=True)
-        err = check("moe_gather",
-                    ops.moe_gather(xf, ids, wg, wu, wd, top_k=top_k),
-                    moe_gather_plain(xf, ids, wg, wu, wd, top_k=top_k),
-                    dt, sentinel_rows=ids == n_e)
+        err = check("moe_gather", routed(
+            "moe_gather", route(dt, d, m),
+            lambda: ops.moe_gather(xf, ids, wg, wu, wd, top_k=top_k)),
+            moe_gather_plain(xf, ids, wg, wu, wd, top_k=top_k),
+            dt, sentinel_rows=ids == n_e)
     sets = [gather_set(torch.bfloat16) for _ in range(16)]
     distinct = sum(len(set(s[1].tolist())) for s in sets) / len(sets)
     nbytes = 2 * (3 * distinct * d * m + BATCH * d + BATCH * top_k * d)
     sets = sets[:n_sets(nbytes)]
-    ms = time_ms(lambda xf, i, wg, wu, wd: ops.moe_gather(
-        xf, i, wg, wu, wd, top_k=top_k), sets)
-    plain_ms = time_ms(lambda xf, i, wg, wu, wd: moe_gather_plain(
-        xf, i, wg, wu, wd, top_k=top_k), sets)
 
     def gather_library(xf, i, wg, wu, wd):
         ids = i.long()
@@ -392,16 +442,21 @@ def kernel_phase() -> dict:
         h = F.silu(torch.bmm(xr, wg[ids])) * torch.bmm(xr, wu[ids])
         return torch.bmm(h, wd[ids])[:, 0]
 
-    lib_ms = time_ms(gather_library, sets)
     b_ms, b_by = bound(6 * BATCH * top_k * d * m, nbytes, "bfloat16")
     records["moe_gather"] = dict(
         name="moe_gather", route="cuda",
         source="src/repro_torch/kernels/csrc/moe_gather.cu",
         replaces="src/repro/kernels/moe_gather.py:100", launches=None,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, dtype="bfloat16",
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, dtype="bfloat16",
         shape=f"rows={BATCH * top_k} E={n_e} d={d} m={m} "
-              f"distinct experts~{distinct:.2f}")
+              f"distinct experts~{distinct:.2f}", kernel_route="tensor_core",
+        **both_routes("moe_gather", sets,
+                      lambda xf, i, wg, wu, wd: ops.moe_gather(
+                          xf, i, wg, wu, wd, top_k=top_k),
+                      lambda *a: moe_gather_cuda(*a, top_k=top_k,
+                                                 path="simt"),
+                      lambda *a: moe_gather_plain(*a, top_k=top_k),
+                      gather_library, b_ms, b_by))
     records["paged_attn_decode"] = paged_attn_phase(g, dev)
     records["mla_paged_decode"] = mla_phase(g, dev)
     records["ssd_scan"] = ssd_phase(g, dev)
@@ -434,8 +489,8 @@ def swiglu_phase(g, dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.swiglu import (ROUTE_LAUNCHES, route,
-                                            swiglu_ffn_cuda, swiglu_ffn_plain)
+    from repro_torch.kernels.swiglu import (route, swiglu_ffn_cuda,
+                                            swiglu_ffn_plain)
 
     bf = torch.bfloat16
     d, f = QWEN_FFN
@@ -453,15 +508,10 @@ def swiglu_phase(g, dev) -> dict:
                 rnd((f, d), f ** -0.5)]
 
     def checked(what, x, wg, wu, wd, activation="swiglu"):
-        ROUTE_LAUNCHES.clear()
-        err = check(f"swiglu_ffn {what}",
-                    ops.swiglu_ffn(x, wg, wu, wd, activation=activation),
-                    swiglu_ffn_plain(x, wg, wu, wd, activation), x.dtype)
-        want = {route(x.dtype, *wg.shape): 1}
-        if dict(ROUTE_LAUNCHES) != want:
-            raise AssertionError(f"swiglu_ffn {what}: routes "
-                                 f"{dict(ROUTE_LAUNCHES)}, want {want}")
-        return err
+        return check(f"swiglu_ffn {what}", routed(
+            "swiglu_ffn", route(x.dtype, *wg.shape),
+            lambda: ops.swiglu_ffn(x, wg, wu, wd, activation=activation)),
+            swiglu_ffn_plain(x, wg, wu, wd, activation), x.dtype)
 
     def chain(x, wg, wu, wd):
         return (F.silu(x @ wg) * (x @ wu)) @ wd
@@ -841,16 +891,25 @@ def ssd_phase(g, dev) -> dict:
 
 def deepseek_expert_times(g, dev, records: dict) -> None:
     """moe_gmm_ragged (static prefill, 4 x 32 tokens) and moe_gather (a
-    decode step, 4 tokens) at deepseek-v2's expert shapes: 160 experts of
-    d 5120, m 1536, top-6, bfloat16. Checked against the plain version
-    once, then timed; the records gain a "deepseek" entry."""
+    decode step, 4 tokens; and the widest mixed step, DS_MIXED_TOKENS) at
+    deepseek-v2's expert shapes: 160 experts of d 5120, m 1536, top-6,
+    bfloat16. Checked against the plain version once (each call on the
+    tensor cores), then timed on both routes beside the plain version and
+    the chain; the records gain a "deepseek" entry. On the decode set's
+    tokens and ids, a gather row, the ragged row of the same (token,
+    expert) and moe_gmm's capacity row must be bitwise equal (BN 128 at 160
+    experts)."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.core.experts import ragged_layout, ragged_scatter
+    from repro_torch.core.experts import (assign_positions, ragged_layout,
+                                          ragged_scatter)
     from repro_torch.kernels import ops
-    from repro_torch.kernels.moe_gather import moe_gather_plain
-    from repro_torch.kernels.moe_gmm import moe_gmm_ragged_plain
+    from repro_torch.kernels.moe_gather import (moe_gather_cuda,
+                                                moe_gather_plain)
+    from repro_torch.kernels.moe_gmm import (moe_gmm_ragged_cuda,
+                                             moe_gmm_ragged_plain)
 
     moe = get_config(DS_ARCH).moe
     d = get_config(DS_ARCH).d_model
@@ -869,40 +928,108 @@ def deepseek_expert_times(g, dev, records: dict) -> None:
         x = torch.randn((t, d), generator=g, device=dev).to(bf)
         return [ragged_scatter(x, k, slot, p_total), owner] + bank, ids
 
-    def gather_set():
-        ids = torch.randint(0, n_e, (BATCH * k,), generator=g,
+    def gather_set(t=BATCH):
+        ids = torch.randint(0, n_e, (t * k,), generator=g,
                             device=dev).to(torch.int32)
-        x = torch.randn((BATCH, d), generator=g, device=dev).to(bf)
+        x = torch.randn((t, d), generator=g, device=dev).to(bf)
         return [x, ids] + bank, ids
 
-    def note(name, sets, ids, fn, plain, rows):
-        err = check(f"{name} deepseek-v2 shape", fn(*sets[0]),
-                    plain(*sets[0]), bf)
-        ms = time_ms(fn, sets, iters=10)
-        plain_ms = time_ms(plain, sets, iters=10)
+    def gmm_chain(xp, o, wg, wu, wd):
+        own = o.long()
+        xb = xp.reshape(-1, block, d)
+        h = F.silu(torch.bmm(xb, wg[own])) * torch.bmm(xb, wu[own])
+        return torch.bmm(h, wd[own])
+
+    def gather_chain(xf, i, wg, wu, wd):
+        ids = i.long()
+        xr = xf.repeat_interleave(k, dim=0)[:, None]
+        h = F.silu(torch.bmm(xr, wg[ids])) * torch.bmm(xr, wu[ids])
+        return torch.bmm(h, wd[ids])[:, 0]
+
+    def work(ids, rows):
         live = sum(len(set(i.tolist())) for i in ids) / len(ids)
         nbytes = 2 * (3 * live * d * m + 2 * rows * d)
-        b_ms, b_by = bound(6 * rows * d * m, nbytes, "bfloat16")
+        return live, bound(6 * rows * d * m, nbytes, "bfloat16")
+
+    def note(name, sets, ids, fn, simt, plain, chain, rows):
+        err = check(f"{name} deepseek-v2 shape",
+                    routed(name, "tensor_core", lambda: fn(*sets[0])),
+                    plain(*sets[0]), bf)
+        live, (b_ms, b_by) = work(ids, rows)
+        t = both_routes(f"{name} deepseek-v2 shape ({rows} rows, {n_e} "
+                        f"experts of {d}x{m})", sets, fn, simt, plain, chain,
+                        b_ms, b_by, iters=10, graphs=False)
         records[name]["deepseek"] = dict(
             shape=f"rows={rows} E={n_e} d={d} m={m} top_k={k} "
-                  f"distinct experts~{live:.1f}", max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        print(f"[time] {name} deepseek-v2 shape ({rows} rows, {n_e} "
-              f"experts of {d}x{m}): {ms:.4f} ms (bound {b_ms:.4f} ms, "
-              f"{b_by}), plain {plain_ms:.4f} ms")
+                  f"distinct experts~{live:.1f}", max_abs_err=err,
+            bound_ms=b_ms, bound_by=b_by, **t)
+
+    def gather(xf, i, wg, wu, wd):
+        return ops.moe_gather(xf, i, wg, wu, wd, top_k=k)
 
     made = [gmm_set() for _ in range(2)]
     note("moe_gmm_ragged", [a for a, _ in made], [i for _, i in made],
          lambda xp, o, wg, wu, wd: ops.moe_gmm_ragged(xp, o, wg, wu, wd,
                                                       block_c=block),
-         lambda xp, o, wg, wu, wd: moe_gmm_ragged_plain(
-             xp, o, wg, wu, wd, "swiglu", block), BATCH * PROMPT * k)
+         lambda *a: moe_gmm_ragged_cuda(*a, "swiglu", block, path="simt"),
+         lambda *a: moe_gmm_ragged_plain(*a, "swiglu", block), gmm_chain,
+         BATCH * PROMPT * k)
+    # what the layout's padding costs: the same calls cut to their live
+    # tiles (no trailing tile), and moe_gmm on n_e full 64-row tiles (every
+    # A row read, as a ragged tile's are, and no trailing tile)
+    cut = []
+    for a, ids in made:
+        tiles = int(((torch.bincount(ids, minlength=n_e) + block - 1) //
+                     block).sum())
+        cut.append([a[0][:tiles * block], a[1][:tiles]] + bank)
+    cut_ms = time_ms(lambda xp, o, wg, wu, wd: ops.moe_gmm_ragged(
+        xp, o, wg, wu, wd, block_c=block), cut, iters=10)
+    g_full = torch.Generator(device=dev)
+    g_full.manual_seed(25)
+    full = [[torch.randn((n_e, block, d), generator=g_full,
+                         device=dev).to(bf)] + bank for _ in range(2)]
+    full_ms = time_ms(lambda x, wg, wu, wd: ops.moe_gmm(x, wg, wu, wd), full,
+                      iters=10)
+    print(f"[time] moe_gmm_ragged deepseek-v2 shape cut to its live tiles "
+          f"({tiles} of {made[-1][0][0].shape[0] // block}): {cut_ms:.4f} "
+          f"ms; moe_gmm on {n_e} full {block}-row tiles: {full_ms:.4f} ms")
+    records["moe_gmm_ragged"]["deepseek"].update(
+        live_tiles_ms=cut_ms, moe_gmm_full_tiles_ms=full_ms)
+    del made, cut, full
     made = [gather_set() for _ in range(4)]
-    note("moe_gather", [a for a, _ in made], [i for _, i in made],
-         lambda xf, i, wg, wu, wd: ops.moe_gather(xf, i, wg, wu, wd,
-                                                  top_k=k),
-         lambda xf, i, wg, wu, wd: moe_gather_plain(xf, i, wg, wu, wd,
-                                                    top_k=k), BATCH * k)
+    note("moe_gather", [a for a, _ in made], [i for _, i in made], gather,
+         lambda *a: moe_gather_cuda(*a, top_k=k, path="simt"),
+         lambda *a: moe_gather_plain(*a, top_k=k), gather_chain, BATCH * k)
+    # the widest mixed step the engine sends to gather (the break-even)
+    mixed = [gather_set(DS_MIXED_TOKENS) for _ in range(2)]
+    rows = DS_MIXED_TOKENS * k
+    check(f"moe_gather deepseek-v2 mixed step ({rows} rows)",
+          gather(*mixed[0][0]), moe_gather_plain(*mixed[0][0], top_k=k), bf)
+    live, (b_ms, b_by) = work([i for _, i in mixed], rows)
+    ms = time_ms(gather, [a for a, _ in mixed], iters=10)
+    print(f"[time] moe_gather deepseek-v2 mixed step ({rows} rows, "
+          f"~{live:.1f} distinct experts): tensor cores {ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    records["moe_gather"]["deepseek"]["mixed"] = dict(
+        rows=rows, distinct=live, ms=ms, bound_ms=b_ms, bound_by=b_by)
+
+    # one arithmetic for a routed row, at 160 experts (BN 128)
+    (xf, ids, *_), _ = made[0]
+    flat = ids.long()
+    rows_g = gather(xf, ids, *bank)
+    slot, owner, _, p_total = ragged_layout(flat, n_e, block)
+    rows_r = ops.moe_gmm_ragged(ragged_scatter(xf, k, slot, p_total), owner,
+                                *bank, block_c=block)[slot]
+    pos = assign_positions(flat.reshape(-1, k), n_e, BATCH * k)[0].reshape(-1)
+    xbuf = torch.zeros((n_e, BATCH * k, d), dtype=bf, device=dev)
+    xbuf[flat, pos] = xf.repeat_interleave(k, dim=0)
+    rows_c = ops.moe_gmm(xbuf, *bank)[flat, pos]
+    if not (torch.equal(rows_g, rows_r) and torch.equal(rows_g, rows_c)):
+        raise AssertionError("deepseek-v2 experts: gather, ragged and "
+                             "capacity rows of the same (token, expert) "
+                             "differ")
+    print(f"[invariance] deepseek-v2 experts (E {n_e}): {BATCH * k} gather "
+          f"rows == their ragged rows == their capacity rows, bitwise")
 
 
 def moe_gmm_phase(g, dev) -> dict:
@@ -920,8 +1047,8 @@ def moe_gmm_phase(g, dev) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.moe_gmm import (ROUTE_LAUNCHES, moe_gmm_cuda,
-                                             moe_gmm_plain, route)
+    from repro_torch.kernels.moe_gmm import (moe_gmm_cuda, moe_gmm_plain,
+                                             route)
 
     def rnd(shape, dtype, scale=1.0, gen=g):
         return (torch.randn(shape, generator=gen, device=dev) *
@@ -933,14 +1060,10 @@ def moe_gmm_phase(g, dev) -> dict:
                 rnd((e, m, d), dtype, m ** -0.5, gen)]
 
     def checked(what, x, w, act="swiglu"):
-        ROUTE_LAUNCHES.clear()
-        err = check(f"moe_gmm {what}", ops.moe_gmm(x, *w, activation=act),
-                    moe_gmm_plain(x, *w, act), x.dtype)
-        want = {route(x.dtype, *w[0].shape[1:]): 1}
-        if dict(ROUTE_LAUNCHES) != want:
-            raise AssertionError(f"moe_gmm {what}: routes "
-                                 f"{dict(ROUTE_LAUNCHES)}, want {want}")
-        return err
+        return check(f"moe_gmm {what}", routed(
+            "moe_gmm", route(x.dtype, *w[0].shape[1:]),
+            lambda: ops.moe_gmm(x, *w, activation=act)),
+            moe_gmm_plain(x, *w, act), x.dtype)
 
     for dt in (torch.float32, torch.bfloat16):
         for e, c, d, m, act in ((8, 8, 1024, 352, "swiglu"),
@@ -1058,22 +1181,27 @@ def decode_work(bh, t, d, pos, itemsize) -> tuple[float, float]:
 
 
 # the tensor-core kernels in mangled names, by library: flash_attention's
-# by (DP, BK), the FFN core's (ffn_tc.cuh, in swiglu and moe_gmm) by (BN,
-# GLU, consumer warpgroups); and flash_attention's SIMT one by (element
-# type, NJ)
+# by (DP, BK), the FFN core's (ffn_tc.cuh, in swiglu, moe_gmm and
+# moe_gather) by (BN, GLU, consumer warpgroups, row rule); and
+# flash_attention's SIMT one by (element type, NJ)
 FA_TC_KERNEL = re.compile(r"flash_attn_tcILi(\d+)ELi(\d+)E")
-FFN_TC_KERNEL = re.compile(r"ffn_tc_tileILi(\d+)ELb([01])ELi(\d+)E")
+FFN_TC_KERNEL = re.compile(
+    r"ffn_tc_tileILi(\d+)ELb([01])ELi(\d+)ELi(\d+)E")
+FFN_TC_RULES = {"0": "capacity", "1": "ragged", "2": "gather"}
 SIMT_KERNEL = re.compile(r"flash_attn_kernelI(f|13__nv_bfloat16)Li(\d+)E")
-# tensor-core instantiations each library must hold: DP 64, 128, 256; BN
-# 64 and 128 of gate/up with one and two consumer warpgroups, and of down
-# with one
-TC_INSTANCES = {"flash_attention": 3, "swiglu": 6, "moe_gmm": 6}
+# tensor-core instantiations each library must hold: DP 64, 128, 256; for
+# each row rule of the FFN core, BN 64 and 128 of gate/up and of down, and
+# under the capacity rule (swiglu_ffn's and moe_gmm's) gate/up also with
+# two consumer warpgroups
+TC_INSTANCES = {"flash_attention": 3, "swiglu": 6, "moe_gmm": 10,
+                "moe_gather": 4}
 
 
 def tensor_core_report() -> None:
     """Phase 1: a [tensor cores] line for each instantiation of the
-    tensor-core kernels (flash_attention's, and the FFN core's in swiglu
-    and moe_gmm) and of flash_attention's SIMT kernel, with its registers
+    tensor-core kernels (flash_attention's, and the FFN core's in swiglu,
+    moe_gmm and moe_gather) and of flash_attention's SIMT kernel, with its
+    registers
     and spills (ptxas) and the HGMMA instructions in its SASS (cuobjdump
     -sass on the library). A tensor-core instantiation with no HGMMA or
     with spills fails."""
@@ -1087,7 +1215,7 @@ def tensor_core_report() -> None:
         if m:
             stage = "gate/up" if m[2] == "1" else "down"
             return (f"bf16 ffn_tc_tile<BN {m[1]}, {stage}, {m[3]} consumer "
-                    f"warpgroups>"), True
+                    f"warpgroups, {FFN_TC_RULES[m[4]]} rows>"), True
         m = SIMT_KERNEL.search(name)
         if m:
             return (f"{'f32' if m[1] == 'f' else 'bf16'} flash_attn_kernel"
@@ -1142,19 +1270,18 @@ def tensor_core_report() -> None:
 
 
 def ffn_routes(tag: str, want: str) -> dict:
-    """The route counts of swiglu_ffn and moe_gmm since the last reset of
-    the launch counts: every launch must have run the `want` kernel
+    """The route counts of the four FFN kernels since the last reset of the
+    launch counts: every launch must have run the `want` kernel
     ("tensor_core" in a bfloat16 phase, "simt" in a float32 one). Prints
     and returns those of the kernels that ran."""
     from repro_torch.kernels import ops
-    routes = {n: dict(ops.ROUTES[n]) for n in ("swiglu_ffn", "moe_gmm")
-              if ops.LAUNCHES[n]}
+    routes = {n: dict(ops.ROUTES[n]) for n in FFN_KERNELS if ops.LAUNCHES[n]}
     for name, counts in routes.items():
         if counts != {want: ops.LAUNCHES[name]}:
             raise AssertionError(f"{tag}: {name} routes {counts} for "
                                  f"{ops.LAUNCHES[name]} launches, want all "
                                  f"on {want}")
-    print(f"[routes] {tag}: {routes or 'no swiglu_ffn or moe_gmm launch'}")
+    print(f"[routes] {tag}: {routes or 'no FFN kernel launch'}")
     return routes
 
 
@@ -1174,8 +1301,7 @@ def flash_attention_phase(g, dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES,
-                                                     flash_attention_plain,
+    from repro_torch.kernels.flash_attention import (flash_attention_plain,
                                                      route)
 
     def case(bh, s, t, d, dtype, gen=g):
@@ -1189,16 +1315,11 @@ def flash_attention_phase(g, dev) -> dict:
     g_tc.manual_seed(22)
 
     def checked(q, k, v, causal, what):
-        ROUTE_LAUNCHES.clear()
-        err = check(f"flash_attention {what} "
-                    f"{'causal' if causal else 'full'}",
-                    ops.flash_attention(q, k, v, causal=causal),
-                    flash_attention_plain(q, k, v, causal), q.dtype)
-        want = {route(q.dtype, q.shape[-1]): 1}
-        if dict(ROUTE_LAUNCHES) != want:
-            raise AssertionError(f"flash_attention {what}: routes "
-                                 f"{dict(ROUTE_LAUNCHES)}, want {want}")
-        return err
+        return check(f"flash_attention {what} "
+                     f"{'causal' if causal else 'full'}", routed(
+                         "flash_attention", route(q.dtype, q.shape[-1]),
+                         lambda: ops.flash_attention(q, k, v, causal=causal)),
+                     flash_attention_plain(q, k, v, causal), q.dtype)
 
     cases = [(3, 100, 100, 16, True), (2, 200, 130, 64, True),
              (2, 75, 300, 128, True), (2, 100, 77, 128, False),
@@ -1531,13 +1652,43 @@ def capacity_path(model, params, tag: str) -> dict:
     return launches
 
 
+def routed_rows(kernel: str, x, ws, k: int):
+    """Each (token, expert) pair's output row (T * k, d), token-major,
+    through `kernel` ("moe_gather", "moe_gmm_ragged" on its layout, or
+    "moe_gmm" on capacity buffers that hold every pair). A token's k expert
+    ids come from its own values, so a token names the same experts at any
+    width."""
+    import torch
+
+    from repro_torch.core.experts import (assign_positions, ragged_layout,
+                                          ragged_scatter)
+    from repro_torch.kernels import ops
+    e, t = ws[0].shape[0], x.shape[0]
+    ids = (x[:, :k].float() * 64).floor().long().remainder(e)
+    flat = ids.reshape(-1)
+    if kernel == "moe_gather":
+        return ops.moe_gather(x, flat, *ws, top_k=k)
+    if kernel == "moe_gmm_ragged":
+        slot, owner, _, p_total = ragged_layout(flat, e, 64)
+        xp = ragged_scatter(x, k, slot, p_total)
+        return ops.moe_gmm_ragged(xp, owner, *ws, block_c=64)[slot]
+    pos = assign_positions(ids, e, t * k)[0].reshape(-1)
+    xbuf = torch.zeros((e, t * k, x.shape[1]), dtype=x.dtype,
+                       device=x.device)
+    xbuf[flat, pos] = x.repeat_interleave(k, dim=0)
+    return ops.moe_gmm(xbuf, *ws)[flat, pos]
+
+
 def width_invariance() -> None:
     """Phase 4a: every dense product the engine runs (and the norms and the
     MoE gate), on the card in bfloat16 at qwen1.5-0.5b's and deepseek-v2's
     shapes, gives a row bitwise the same result alone and inside every
-    width the engine runs; so do swiglu_ffn and moe_gmm on the tensor
-    cores, up to 512 rows. Raw torch.matmul and torch.bmm, without the
-    port's fixed row tiles, are measured beside them."""
+    width the engine runs; so do the four FFN kernels on the tensor cores,
+    up to 512 rows (tokens, for the routed experts). At qwen's and
+    deepseek's expert widths a (token, expert) pair's row is bitwise the
+    same through moe_gather, moe_gmm_ragged and moe_gmm. Raw torch.matmul
+    and torch.bmm, without the port's fixed row tiles, are measured beside
+    them."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1628,6 +1779,18 @@ def width_invariance() -> None:
             (8, dd), lambda x, ws=(w(8, dd, em), w(8, dd, em),
                                    w(8, em, dd)): by_slot(x, ws)),
     }
+    # the routed experts' two kernels on the tensor cores, each token's
+    # expert rows (T, k, d): qwen's converted experts (5 routed, top-3) and
+    # 8 of deepseek's (top-6)
+    routed_banks = {"qwen": (5, d, m, 3), "deepseek": (8, dd, em, 6)}
+    for tag, (e, de, me, k) in routed_banks.items():
+        ws = (w(e, de, me), w(e, de, me), w(e, me, de))
+        routed_banks[tag] = (ws, k)
+        for kernel in ("moe_gmm_ragged", "moe_gather"):
+            ffn_products[f"{kernel}, tensor cores ({e} experts of {de} x "
+                         f"{me}, top-{k})"] = (
+                (de,), lambda x, ws=ws, k=k, kernel=kernel:
+                routed_rows(kernel, x, ws, k).reshape(len(x), k, -1))
     # up to PROBE_ROWS a product may run as one call; above, in row tiles
     widths = sorted({1, 2, 3, 4, 8, 12, 16, 20, 24, 28, 32, 36, 64, 65, 128,
                      129, 192})
@@ -1650,6 +1813,21 @@ def width_invariance() -> None:
         invariant(name, tail, fn, widths)
     for name, (tail, fn) in ffn_products.items():
         invariant(name, tail, fn, widths + [300, 512])
+    # one arithmetic for a routed row: a (token, expert) pair's output row
+    # through moe_gather, moe_gmm_ragged and moe_gmm's capacity buffers
+    for tag, (ws, k) in routed_banks.items():
+        x = torch.randn((100, ws[0].shape[1]), generator=g, device=dev).to(bf)
+        rows = [routed_rows(kr, x, ws, k)
+                for kr in ("moe_gather", "moe_gmm_ragged", "moe_gmm")]
+        if not (torch.equal(rows[0], rows[1]) and
+                torch.equal(rows[0], rows[2])):
+            raise AssertionError(f"{tag} experts: gather, ragged and "
+                                 f"capacity rows of the same (token, expert) "
+                                 f"differ")
+        print(f"[invariance] {tag} experts ({ws[0].shape[0]} of "
+              f"{ws[0].shape[1]} x {ws[0].shape[2]}): {rows[0].shape[0]} "
+              f"gather rows == their ragged rows == their capacity rows, "
+              f"bitwise")
 
     def raw_breaks(fn, tail):
         x = torch.randn((max(widths), *tail), generator=g, device=dev)
@@ -1743,6 +1921,7 @@ def deepseek_f32_agreement() -> dict:
 
     from repro_torch.config import override
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
     dev = torch.device("cuda")
@@ -1767,6 +1946,8 @@ def deepseek_f32_agreement() -> dict:
         0, cfg.vocab_size, (rows, PROMPT)), dtype=torch.long, device=dev)
     feed = [prompts]
     logits = {}
+    torch.cuda.synchronize()
+    ops.reset_launches()
     for tag, m in (("kernel", k_model), ("plain", p_model)):
         pool = m.init_paged_cache(1 + rows * nblk, bs)
         out = []
@@ -1795,6 +1976,7 @@ def deepseek_f32_agreement() -> dict:
     print(f"[e2e deepseek f32] kernel vs plain over a prefill chunk and "
           f"{steps} decode steps: max|err| / max|logit| {worst:.3e} (tol "
           f"1e-3); greedy tokens agree {agree}/{rows * (steps + 1)}")
+    ffn_routes("phase 5a deepseek f32 kernel path", "simt")
     return capacity_path(k_model, params, "f32")
 
 

@@ -42,9 +42,11 @@ SIGNATURES = {
     "swiglu_ffn_launch": ("swiglu", [_P] * 6 + [_I] * 5 + [_P]),
     "swiglu_ffn_tc_launch": ("swiglu", [_P] * 6 + [_I] * 4 + [_P]),
     "moe_gmm_ragged_launch": ("moe_gmm", [_P] * 7 + [_I] * 7 + [_P]),
+    "moe_gmm_ragged_tc_launch": ("moe_gmm", [_P] * 7 + [_I] * 5 + [_P]),
     "moe_gmm_launch": ("moe_gmm", [_P] * 6 + [_I] * 6 + [_P]),
     "moe_gmm_tc_launch": ("moe_gmm", [_P] * 6 + [_I] * 5 + [_P]),
     "moe_gather_launch": ("moe_gather", [_P] * 7 + [_I] * 7 + [_P]),
+    "moe_gather_tc_launch": ("moe_gather", [_P] * 7 + [_I] * 7 + [_P]),
     "paged_attn_decode_launch": ("paged_attn",
                                  [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
     "mla_paged_decode_launch": ("mla_paged",

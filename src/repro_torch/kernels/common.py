@@ -54,10 +54,11 @@ def check_ids(ids: torch.Tensor, n: int, device: torch.device) -> None:
 
 
 def ffn_route(dtype: torch.dtype, d: int, m: int) -> str:
-    """The CUDA kernel that serves a swiglu_ffn or moe_gmm call:
-    "tensor_core" (csrc/ffn_tc.cuh) for bfloat16 with d and m multiples of
-    8, the 16-byte row strides its TMA loads need; else "simt"
-    (csrc/ffn_core.cuh: float32 at any width, bfloat16 off that grid)."""
+    """The CUDA kernel that serves a call of one of the four FFN kernels
+    (swiglu_ffn, moe_gmm_ragged, moe_gather, moe_gmm): "tensor_core"
+    (csrc/ffn_tc.cuh) for bfloat16 with d and m multiples of 8, the 16-byte
+    row strides its TMA loads need; else "simt" (csrc/ffn_core.cuh: float32
+    at any width, bfloat16 off that grid)."""
     if dtype == torch.bfloat16 and d % 8 == 0 and m % 8 == 0:
         return "tensor_core"
     return "simt"

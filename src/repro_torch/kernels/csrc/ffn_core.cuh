@@ -30,10 +30,11 @@
 // weights); fusing it back is later work. Each block computes a BM x BN
 // output tile with a BK-deep shared-memory K loop and TM x TN fp32
 // accumulators per thread (SIMT FMA): exact in f32, far from the bf16
-// tensor-core bound. It serves float32 for all four kernels, bf16 for
-// moe_gmm_ragged and moe_gather, and bf16 for swiglu_ffn and moe_gmm only
-// where d or m is off the 8 grid; bf16 swiglu_ffn and moe_gmm otherwise run
-// on the tensor cores (ffn_tc.cuh).
+// tensor-core bound. It serves float32 for all four kernels, and bf16
+// only where d or m is off the 8 grid; bf16 otherwise runs on the tensor
+// cores (ffn_tc.cuh): swiglu_ffn and moe_gmm through its rule kCapacity,
+// moe_gmm_ragged through kOwner and moe_gather through kGather, all with
+// one per-row arithmetic.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -35,6 +35,7 @@ extern "C" int swiglu_ffn_tc_launch(const void* x, const void* wg,
                                     const void* wu, const void* wd, void* h,
                                     void* out, int t, int d, int f, int act,
                                     void* stream) {
-  return ffn_tc::run(x, wg, wu, wd, h, out, /*E=*/1, /*C=*/t, d, f, act,
-                     stream);
+  return ffn_tc::run<ffn_tc::kCapacity>(x, nullptr, wg, wu, wd, h, out,
+                                        /*E=*/1, /*C=*/t, /*x_rows=*/t, d, f,
+                                        /*top_k=*/1, act, stream);
 }

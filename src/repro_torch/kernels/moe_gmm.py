@@ -8,13 +8,13 @@ Port of the two Pallas kernels of ``repro/kernels/moe_gmm.py``:
 * ``moe_gmm``: dense (E, C, d) capacity buffers, row block e runs expert
   e's GLU FFN (the bounded-buffer path of ``core.experts``).
 
-Both CUDA kernels are entry points of ``csrc/moe_gmm.cu`` over the SIMT
-core ``csrc/ffn_core.cuh``. ``moe_gmm`` has a second one, and
-``route(dtype, d, m)`` picks between them: bfloat16 with d and m multiples
-of 8 (every config's expert widths) runs on the tensor cores
-(``csrc/ffn_tc.cuh``: TMA and ``wgmma``), everything else on the SIMT core.
-The plain versions below repeat their arithmetic: g and u in fp32, h
-rounded to the input dtype, the down product summed in fp32 and cast once.
+Both are entry points of ``csrc/moe_gmm.cu``, each with two CUDA kernels,
+and ``route(dtype, d, m)`` picks between them: bfloat16 with d and m
+multiples of 8 (every config's expert widths) runs on the tensor cores
+(``csrc/ffn_tc.cuh``: TMA and ``wgmma``), everything else on the SIMT core
+``csrc/ffn_core.cuh``. The plain versions below repeat their arithmetic:
+g and u in fp32, h rounded to the input dtype, the down product summed in
+fp32 and cast once.
 """
 from __future__ import annotations
 
@@ -29,11 +29,13 @@ from repro_torch.kernels.common import (act, act_code, aligned16,
                                         ffn_route, raise_on_error,
                                         stream_ptr, tc_or_simt)
 
-# rows of one CUDA tile (kBM in csrc/ffn_core.cuh): the kernel takes exactly
-# this layout block, so every tile has one owner
+# rows of one CUDA tile (kBM in csrc/ffn_core.cuh, kRows in csrc/ffn_tc.cuh):
+# the kernels take exactly this layout block, so every tile has one owner
 CUDA_TILE_ROWS = 64
-# moe_gmm's launches of each route since the last reset
+# launches of each route since the last reset: moe_gmm's and
+# moe_gmm_ragged's
 ROUTE_LAUNCHES: Counter = Counter()
+RAGGED_ROUTE_LAUNCHES: Counter = Counter()
 route = ffn_route     # route(dtype, d, m): "tensor_core" or "simt"
 
 
@@ -55,8 +57,11 @@ def moe_gmm_ragged_plain(xp: torch.Tensor, owner: torch.Tensor,
 def moe_gmm_ragged_cuda(xp: torch.Tensor, owner: torch.Tensor,
                         wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
                         activation: str = "swiglu",
-                        block_c: int = CUDA_TILE_ROWS) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream."""
+                        block_c: int = CUDA_TILE_ROWS,
+                        path: Optional[str] = None) -> torch.Tensor:
+    """Launch the kernel that ``route`` names (or ``path``: "simt" runs the
+    SIMT core on any operands, to time it beside the other) on the current
+    stream."""
     dt, dev = check_float_operands(xp, wg, wu, wd)
     p, d = xp.shape
     e, _, m = wg.shape
@@ -68,13 +73,22 @@ def moe_gmm_ragged_cuda(xp: torch.Tensor, owner: torch.Tensor,
         raise ValueError(f"banks wg {tuple(wg.shape)}, wu {tuple(wu.shape)},"
                          f" wd {tuple(wd.shape)} do not match d={d}")
     check_ids(owner, p // block_c, dev)
+    path = tc_or_simt(route(xp.dtype, d, m), path)
     h = torch.empty((p, m), dtype=xp.dtype, device=dev)
     out = torch.empty((p, d), dtype=xp.dtype, device=dev)
-    err = build.entry("moe_gmm_ragged_launch")(
-        xp.data_ptr(), owner.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-        wd.data_ptr(), h.data_ptr(), out.data_ptr(), p, d, m, e, block_c,
-        dt, act_code(activation), stream_ptr(dev))
-    raise_on_error(err, "moe_gmm_ragged")
+    if path == "tensor_core":
+        xp, wg, wu, wd = (aligned16(a) for a in (xp, wg, wu, wd))
+        err = build.entry("moe_gmm_ragged_tc_launch")(
+            xp.data_ptr(), owner.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+            wd.data_ptr(), h.data_ptr(), out.data_ptr(), p, d, m, e,
+            act_code(activation), stream_ptr(dev))
+    else:
+        err = build.entry("moe_gmm_ragged_launch")(
+            xp.data_ptr(), owner.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+            wd.data_ptr(), h.data_ptr(), out.data_ptr(), p, d, m, e,
+            block_c, dt, act_code(activation), stream_ptr(dev))
+    raise_on_error(err, f"moe_gmm_ragged ({path})")
+    RAGGED_ROUTE_LAUNCHES[path] += 1
     return out
 
 

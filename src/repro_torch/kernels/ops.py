@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_gather as _gather
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import swiglu as _swiglu
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -49,6 +50,8 @@ LAUNCHES = {name: 0 for name in KERNELS}
 # the kernels with two CUDA routes: launches of each route (which kernel a
 # call ran), reset with LAUNCHES
 ROUTES = {"swiglu_ffn": _swiglu.ROUTE_LAUNCHES,
+          "moe_gmm_ragged": _gmm.RAGGED_ROUTE_LAUNCHES,
+          "moe_gather": _gather.ROUTE_LAUNCHES,
           "moe_gmm": _gmm.ROUTE_LAUNCHES,
           "flash_attention": _fa.ROUTE_LAUNCHES}
 

@@ -45,7 +45,11 @@ picking its backend by the TRUE padded row count R (host-known per
 shape): decode-only widths stay on gather, chunk-heavy steps cross the
 gather break-even and run grouped. Every backend is bitwise identical
 under the engine's per-token capacity contract, which is what makes
-overlap-on == overlap-off token parity hold across the switch. `backend_log` records what each
+overlap-on == overlap-off token parity hold across the switch (on the
+card both kernels run one arithmetic a row, csrc/ffn_tc.cuh in bfloat16:
+chip_smoke.py phase 4a checks a gather row, the ragged row of the same
+(token, expert) and moe_gmm's capacity row bitwise equal, and
+tests/test_torch_cuda.py the two backends' outputs). `backend_log` records what each
 micro-batch ran, its padded vs live rows (a fused step charges its
 actual padded row count, not max_slots), and its routed drop count
 (`EngineReport.dropped_pairs` aggregates; zero on every engine backend).

@@ -604,3 +604,133 @@ def test_cuda_ffn_tensor_cores_are_row_invariant():
             one = tops.moe_gmm(xbuf[:, c:c + 1].contiguous(), bg, bu, bd)
             assert torch.equal(one, full[:, c:c + 1]), (d, c)
     torch.cuda.synchronize()
+
+
+def _routed_case(g, dev, t, k, e, d, m):
+    """bf16 tokens (t, d), banks (e, d, m) x 2 and (e, m, d), and (t, k)
+    expert ids, distinct within each token (top-k of random scores)."""
+    x, wg, wu, wd = _bf16_case(g, dev, (t, d), (e, d, m), (e, d, m),
+                               (e, m, d))
+    idx = torch.rand((t, e), generator=g, device=dev).topk(k, dim=1).indices
+    return x, idx, [wg, wu, wd]
+
+
+def _ragged_rows(x, idx, bank, act="swiglu"):
+    """moe_gmm_ragged's output row of each (token, expert) pair, in flat
+    assignment order, and the whole layout's output with its live mask."""
+    from repro_torch.core.experts import ragged_layout, ragged_scatter
+    t, k = idx.shape
+    slot, owner, _, p_total = ragged_layout(idx.reshape(-1), bank[0].shape[0],
+                                            64)
+    xp = ragged_scatter(x, k, slot, p_total)
+    yp = tops.moe_gmm_ragged(xp, owner, *bank, activation=act, block_c=64)
+    live = torch.zeros(p_total, dtype=torch.bool, device=x.device)
+    live[slot] = True
+    return yp[slot], yp, xp, owner, live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,k,e,d,m,act", [
+    (128, 3, 5, 1024, 352, "swiglu"),   # qwen's converted experts, prefill
+    (100, 2, 2, 96, 72, "geglu"),       # 100 rows an expert: two tiles each
+    (40, 6, 160, 128, 256, "swiglu")])  # 160 experts: BN 128 up, 64 down
+def test_cuda_moe_gmm_ragged_tensor_cores_match_plain(t, k, e, d, m, act):
+    """moe_gmm_ragged's bfloat16 route over layouts with padding rows, an
+    expert of more than 64 rows and trailing tiles (owner E - 1, all zero
+    rows), on both sides of the BN switch: each call on the tensor cores,
+    every row that holds no assignment exactly zero, and a tile whose
+    owner is out of range exactly zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.moe_gmm import RAGGED_ROUTE_LAUNCHES
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    x, idx, bank = _routed_case(g, dev, t, k, e, d, m)
+    tops.reset_launches()
+    _, got, xp, owner, live = _ragged_rows(x, idx, bank, act)
+    ref = moe_gmm_ragged_plain(xp, owner, *bank, act, 64)
+    torch.cuda.synchronize()
+    assert RAGGED_ROUTE_LAUNCHES == {"tensor_core": 1}
+    assert got.shape == xp.shape and got.dtype == torch.bfloat16
+    _close(got, ref, torch.bfloat16)
+    assert not got[~live].any()
+    # the layout's worst-case extent leaves at least one trailing tile
+    assert int(live.nonzero().max()) < xp.shape[0] - 64
+    bad = owner.clone()
+    bad[0] = e
+    out = tops.moe_gmm_ragged(xp, bad, *bank, activation=act, block_c=64)
+    assert not out[:64].any() and torch.equal(out[64:], got[64:])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,k,e,d,m,act", [
+    (4, 3, 5, 1024, 352, "swiglu"),     # qwen's decode step
+    (100, 2, 2, 96, 72, "geglu"),       # 100 rows an expert: runs of 64
+    (26, 6, 160, 128, 256, "swiglu")])  # deepseek's widest mixed step
+def test_cuda_moe_gather_tensor_cores_match_plain(t, k, e, d, m, act):
+    """moe_gather's bfloat16 route with sentinel rows (exact zeros), more
+    than 64 rows of one expert, and both sides of the BN switch: each call
+    on the tensor cores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.moe_gather import ROUTE_LAUNCHES
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    x, idx, bank = _routed_case(g, dev, t, k, e, d, m)
+    flat = idx.reshape(-1).to(torch.int32)
+    flat[3::5] = e                                # sentinels
+    tops.reset_launches()
+    got = tops.moe_gather(x, flat, *bank, top_k=k, activation=act)
+    ref = moe_gather_plain(x, flat, *bank, top_k=k, activation=act)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["moe_gather"] == 1
+    assert ROUTE_LAUNCHES == {"tensor_core": 1}
+    assert got.shape == (t * k, d) and got.dtype == torch.bfloat16
+    _close(got, ref, torch.bfloat16)
+    assert not got[flat == e].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,k,e,d,m", [(100, 3, 5, 1024, 352),
+                                       (26, 6, 160, 128, 256)])
+def test_cuda_routed_rows_are_bitwise_equal_across_kernels(t, k, e, d, m):
+    """On the tensor cores a (token, expert) pair's output row is bitwise
+    the same through moe_gather, moe_gmm_ragged and moe_gmm's capacity
+    buffers, alone or among the other tokens; so routed_experts' gather
+    and grouped_kernel backends agree bitwise, which the engine's overlap
+    parity stands on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from types import SimpleNamespace
+
+    from repro_torch.core.experts import assign_positions, routed_experts
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    x, idx, bank = _routed_case(g, dev, t, k, e, d, m)
+    flat = idx.reshape(-1)
+    gathered = tops.moe_gather(x, flat, *bank, top_k=k)
+    ragged, *_ = _ragged_rows(x, idx, bank)
+    pos, keep = assign_positions(idx, e, t)
+    xbuf = torch.zeros((e, t, d), dtype=x.dtype, device=dev)
+    xbuf[flat, pos.reshape(-1)] = x.repeat_interleave(k, dim=0)
+    capacity = tops.moe_gmm(xbuf, *bank)[flat, pos.reshape(-1)]
+    assert torch.equal(gathered, ragged)
+    assert torch.equal(gathered, capacity)
+    for r in (0, t // 2, t - 1):
+        one = idx[r:r + 1]
+        assert torch.equal(tops.moe_gather(x[r:r + 1], one.reshape(-1), *bank,
+                                           top_k=k), gathered[r * k:r * k + k])
+        assert torch.equal(_ragged_rows(x[r:r + 1], one, bank)[0],
+                           gathered[r * k:r * k + k])
+    cfg = SimpleNamespace(activation="swiglu", cmoe=None, moe=None)
+    gates = torch.rand((t, k), generator=g, device=dev)
+    weights = dict(zip(("wg", "wu", "wd"), bank))
+    outs = [routed_experts(x, weights, gates, idx, cfg, backend=b,
+                           use_kernel=True)[0]
+            for b in ("gather", "grouped_kernel")]
+    assert torch.equal(outs[0], outs[1])
+    torch.cuda.synchronize()

@@ -13,13 +13,17 @@ prefill ms, decode tok/s, and the engine's wall, goodput, TTFT and TPOT.
 With ``--arch ARCH`` it serves that arch instead, unconverted and in the
 static mode only (4 x 32 prefill, 16 generated), as ``chip_smoke.py``
 phase 6 serves mamba2-370m and zamba2-1.2b, and prints its prefill ms and
-decode tok/s.
+decode tok/s; ``--layers N`` cuts its depth to N layers, as ``chip_smoke.py``
+phase 5b cuts deepseek-v2-236b to 4 to fit one card.
 
     python3 tools/ab_serve.py build/parent . . build/parent
     python3 tools/ab_serve.py --arch zamba2-1.2b build/parent . . build/parent
+    python3 tools/ab_serve.py --arch deepseek-v2-236b --layers 4 \
+        build/parent . . build/parent
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -55,14 +59,22 @@ print(json.dumps({
 """
 
 
-def main(roots) -> int:
-    static, engine = STATIC, ENGINE
-    if roots[:1] == ["--arch"] and len(roots) > 1:
-        static = ["--arch", roots[1]] + STATIC[STATIC.index("--batch"):]
-        engine, roots = None, roots[2:]
-    if not roots:
-        print(__doc__.strip().splitlines()[-1].strip(), file=sys.stderr)
-        return 2
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", help="serve this arch unconverted, static "
+                                   "mode only")
+    ap.add_argument("--layers", type=int,
+                    help="cut the arch to this many layers (with --arch)")
+    ap.add_argument("roots", nargs="+", help="checkouts, run in this order")
+    args = ap.parse_args(argv)
+    static, engine, roots = STATIC, ENGINE, args.roots
+    if args.arch:
+        static = ["--arch", args.arch] + STATIC[STATIC.index("--batch"):]
+        engine = None
+        if args.layers:
+            static += ["--layers", str(args.layers)]
+    elif args.layers:
+        ap.error("--layers needs --arch")
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
