@@ -21,7 +21,11 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      paged_attn_decode and mla_paged_decode on fragmented tables, rows
      sharing a lane, all-trash padding rows and depths that are not a
      multiple of the block size, paged_attn_decode also at grp 1 and 4 and
-     a window that masks whole leading blocks), then timed with CUDA events
+     a window that masks whole leading blocks, and on its split-KV core
+     over views of several 256-key chunks: pos at and around the chunk
+     edges, a window that kills the leading chunks, granite's 48 query
+     heads per kv head of 128, hd 256; both kernels with rows at pos -1,
+     every key masked: the view's mean), then timed with CUDA events
      in bfloat16 beside its plain version, a PyTorch yardstick (library_ms,
      null where no one PyTorch call computes the function) and its bound
      on the card; moe_gmm_ragged and moe_gather also at deepseek-v2's
@@ -94,7 +98,8 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      the tensor cores; (b) Model.prefill of 4 x 1024 tokens into a
      contiguous cache of 1100, one Model.decode_step, then layer 0's cache
      and the step's post-RoPE query (BH 128, T 1100, pos 1024) against the
-     plain version and decode_attention; tolerances as in phase 2.
+     plain version and decode_attention, both calls on the split-KV
+     core (flash_decode.route); tolerances as in phase 2.
 The ``[routes]`` lines of phases 3a, 3b, 4, 5 (5a, path A, 5b, 5c) and 6
 count which kernel each launch of the four FFN kernels ran: every
 bfloat16 launch on the tensor cores, every float32 one on the SIMT core
@@ -124,9 +129,12 @@ bfloat16 (the tensor-core route) at D 64, 128 and 256 with S and T off its
 kernel that flash_attention.route names (timed at llama2-7b's causal
 prefill, BH 32, S = T = 4096, D 128, and at D 64 and 256 at the same BH,
 S and T, each beside scaled_dot_product_attention), and flash_decode at D
-16 to 256 with pos 0, T - 1, >= T and < 0 (timed at phase 7's decode shape
-and a full 4096 cache, beside scaled_dot_product_attention with a boolean
-mask). Before
+16 to 256 with pos 0, T - 1, >= T and < 0, on views of several 256-key
+chunks (pos at and around the chunk edges) and at D 6 (the SIMT kernel),
+each call checked to run the kernel flash_decode.route names (timed at
+phase 7's decode shape and a full 4096 cache, beside
+scaled_dot_product_attention with a boolean mask, back to back and in a
+CUDA graph; paged_attn_decode too is timed in a graph). Before
 each SSM model and phase 7 the memory still allocated is printed before
 and after a garbage collection.
 Prints the kernels JSON line, then ``{"ok": true, "device": {...}}`` last.
@@ -569,12 +577,13 @@ def swiglu_phase(g, dev) -> dict:
 
 
 def paged_case(g, dev, dtype, *, rows, kh, grp, hd, bs, depth, share=False,
-               trash_rows=0):
+               trash_rows=0, at=None):
     """One paged_attn_decode input set: a pool with poisoned (large, finite)
     unused blocks, fragmented tables (a random permutation of physical
-    blocks), positions spread around `depth`; `share` makes consecutive
-    row pairs one lane at two positions, `trash_rows` appends padding rows
-    whose tables are all trash (block 0)."""
+    blocks), positions spread around `depth` (or the list `at`, one a row:
+    chunk edges, -1); `share` makes consecutive row pairs one lane at two
+    positions, `trash_rows` appends padding rows whose tables are all trash
+    (block 0)."""
     import torch
     nblk = -(-(depth + 1) // bs)
     nblocks = rows * nblk + 1
@@ -585,6 +594,8 @@ def paged_case(g, dev, dtype, *, rows, kh, grp, hd, bs, depth, share=False,
     table = perm.reshape(rows, nblk).to(torch.int32)
     pos = torch.randint(max(depth - 2 * bs, 0), depth + 1, (rows,),
                         generator=g, device=dev).to(torch.int32)
+    if at is not None:
+        pos = torch.tensor(at, dtype=torch.int32, device=dev)
     if share:
         odd = table[1::2].shape[0]
         table[1::2] = table[0::2][:odd]
@@ -601,7 +612,12 @@ def paged_case(g, dev, dtype, *, rows, kh, grp, hd, bs, depth, share=False,
 
 def paged_attn_phase(g, dev) -> dict:
     """paged_attn_decode against its plain version, then timed at the
-    engine's decode shape and at a long context."""
+    engine's decode shape and at a long context, back to back and as calls
+    replayed from one CUDA graph. Beside the engine's shapes: views of
+    several 256-key chunks of the split-KV core (pos at and around the
+    chunk edges, a window that kills the leading chunks), granite's 48
+    query heads per kv head of 128, hd 256, and rows at pos -1 (every key
+    masked: the view's mean)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -614,11 +630,26 @@ def paged_attn_phase(g, dev) -> dict:
              dict(rows=5, kh=2, grp=4, hd=128, bs=8, depth=70, share=True,
                   trash_rows=1, window=0),
              dict(rows=5, kh=2, grp=4, hd=128, bs=8, depth=70, window=27)]
+    # the split-KV core's own cases draw from a generator of their own, so
+    # that g's draws (and every later phase 2 check) stay as they were
+    g_split = torch.Generator(device=dev)
+    g_split.manual_seed(25)
+    split_cases = [
+        dict(rows=8, kh=16, grp=1, hd=64, bs=16, depth=1000, window=0,
+             at=[1000, 255, 256, 257, 511, 512, 0, -1], what="chunk edges"),
+        dict(rows=4, kh=16, grp=1, hd=64, bs=16, depth=1000, window=300,
+             at=[1000, 700, 299, -1], what="window past chunks"),
+        dict(rows=4, kh=2, grp=48, hd=128, bs=16, depth=600, window=0,
+             at=[600, 300, 17, -1], what="granite group"),
+        dict(rows=4, kh=2, grp=2, hd=256, bs=8, depth=520, window=0,
+             at=[520, 256, 3, -1], what="hd 256")]
     for dt in (torch.float32, torch.bfloat16):
-        for c in cases:
+        for c in cases + split_cases:
             c = dict(c)
             window = c.pop("window")
-            q, kp, vp, table, pos = paged_case(g, dev, dt, **c)
+            tag = c.pop("what", "")
+            gen = g_split if tag else g
+            q, kp, vp, table, pos = paged_case(gen, dev, dt, **c)
             sc = c["hd"] ** -0.5
             got = ops.paged_attn_decode(q, kp, vp, table=table, pos=pos,
                                         window=window, scale=sc)
@@ -627,6 +658,14 @@ def paged_attn_phase(g, dev) -> dict:
             # real rows and the all-trash padding rows (which read the
             # poisoned block) are held to tolerances of their own scale
             real = c["rows"]
+            if tag:
+                # each row against its own scale (the pos -1 row is the
+                # small mean of its view)
+                for i in range(real):
+                    check(f"paged_attn_decode {tag} grp={c['grp']} "
+                          f"hd={c['hd']} depth={c['depth']} window={window} "
+                          f"pos={int(pos[i])}", got[i], ref[i], dt)
+                continue
             e = check(f"paged_attn_decode grp={c['grp']} bs={c['bs']} "
                       f"window={window}", got[:real], ref[:real], dt)
             if real < got.shape[0]:
@@ -649,8 +688,11 @@ def paged_attn_phase(g, dev) -> dict:
         pool_bytes = sum(t.numel() * t.element_size() for t in sets[0])
         sets += [one_set() for _ in range(n_sets(pool_bytes) - 1)]
         sc = shape["hd"] ** -0.5
-        ms = time_ms(lambda q, kp, vp, t, p: ops.paged_attn_decode(
-            q, kp, vp, table=t, pos=p, scale=sc), sets)
+
+        def kernel(q, kp, vp, t, p):
+            return ops.paged_attn_decode(q, kp, vp, table=t, pos=p, scale=sc)
+        ms = time_ms(kernel, sets)
+        g_ms = graph_ms(kernel, sets)
         plain_ms = time_ms(lambda q, kp, vp, t, p: paged_attn_decode_plain(
             q, kp, vp, t, p, 0, scale=sc), sets)
         rows, kh, grp, hd = (shape[k] for k in ("rows", "kh", "grp", "hd"))
@@ -659,33 +701,39 @@ def paged_attn_phase(g, dev) -> dict:
                   + 2 * rows * kh * grp * hd * item       # q and out
                   + rows * (-(-live // shape["bs"]) + 1) * 4)  # table, pos
         flops = 4 * rows * live * kh * grp * hd
-        return ms, plain_ms, bound(flops, nbytes, "bfloat16")
+        return ms, g_ms, plain_ms, bound(flops, nbytes, "bfloat16")
 
-    ms, plain_ms, (b_ms, b_by) = timed(PAGED_MAIN)
-    lms, lplain_ms, (lb_ms, lb_by) = timed(PAGED_LONG)
+    ms, g_ms, plain_ms, (b_ms, b_by) = timed(PAGED_MAIN)
+    lms, lg_ms, lplain_ms, (lb_ms, lb_by) = timed(PAGED_LONG)
+    print(f"[time] paged_attn_decode engine decode {PAGED_MAIN}: {ms:.4f} "
+          f"ms ({g_ms:.4f} ms in a CUDA graph; bound {b_ms:.4f} ms, "
+          f"{b_by}), plain {plain_ms:.4f} ms")
     print(f"[time] paged_attn_decode long context {PAGED_LONG}: {lms:.4f} "
-          f"ms (bound {lb_ms:.4f} ms, {lb_by}), plain {lplain_ms:.4f} ms")
+          f"ms ({lg_ms:.4f} ms in a CUDA graph; bound {lb_ms:.4f} ms, "
+          f"{lb_by}), plain {lplain_ms:.4f} ms")
     return dict(
         name="paged_attn_decode", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attn.cu",
+        core="src/repro_torch/kernels/csrc/decode_split.cuh",
         replaces="src/repro/kernels/paged_attention.py:119", launches=None,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None,
         library_note="no single PyTorch call computes a block-table lookup "
                      "plus attention", dtype="bfloat16",
         shape=" ".join(f"{k}={v}" for k, v in PAGED_MAIN.items()),
+        graph_ms=g_ms,
         long_context=dict(shape=" ".join(f"{k}={v}" for k, v in
                                          PAGED_LONG.items()),
-                          ms=lms, plain_ms=lplain_ms, bound_ms=lb_ms,
-                          bound_by=lb_by))
+                          ms=lms, graph_ms=lg_ms, plain_ms=lplain_ms,
+                          bound_ms=lb_ms, bound_by=lb_by))
 
 
 def mla_case(g, dev, dtype, *, rows, heads, r, dr, bs, depth, share=False,
-             trash_rows=0):
+             trash_rows=0, at=None):
     """One mla_paged_decode input set, built as `paged_case` builds its
     own: latent and rope-key pools with a poisoned trash block 0,
-    fragmented tables, positions spread around `depth`, optional rows
-    sharing a lane and all-trash padding rows."""
+    fragmented tables, positions spread around `depth` (or the list `at`),
+    optional rows sharing a lane and all-trash padding rows."""
     import torch
     nblk = -(-(depth + 1) // bs)
     nblocks = rows * nblk + 1
@@ -696,6 +744,8 @@ def mla_case(g, dev, dtype, *, rows, heads, r, dr, bs, depth, share=False,
     table = perm.reshape(rows, nblk).to(torch.int32)
     pos = torch.randint(max(depth - 2 * bs, 0), depth + 1, (rows,),
                         generator=g, device=dev).to(torch.int32)
+    if at is not None:
+        pos = torch.tensor(at, dtype=torch.int32, device=dev)
     if share:
         odd = table[1::2].shape[0]
         table[1::2] = table[0::2][:odd]
@@ -739,6 +789,19 @@ def mla_phase(g, dev) -> dict:
                 check(f"{tag} trash rows", got[real:], ref[real:], dt)
             if dt == torch.bfloat16:
                 err = max(err, e)
+        # a row at pos -1 (every key masked: the mean of its view's latent
+        # rows) beside rows at pos >= 0, on a generator of its own
+        g_neg = torch.Generator(device=dev)
+        g_neg.manual_seed(25)
+        qa, qp, cc, cp, table, pos = mla_case(
+            g_neg, dev, dt, rows=3, heads=128, r=512, dr=64, bs=16, depth=75,
+            at=[75, -1, 20])
+        got = ops.mla_paged_decode(qa, qp, cc, cp, table=table, pos=pos,
+                                   scale=MLA_SCALE)
+        ref = mla_paged_decode_plain(qa, qp, cc, cp, table, pos,
+                                     scale=MLA_SCALE)
+        for i in range(3):
+            check(f"mla_paged_decode pos={int(pos[i])}", got[i], ref[i], dt)
 
     def timed(shape):
         """Kernel and plain ms at `shape` (every row at depth), and the
@@ -1377,33 +1440,48 @@ def flash_decode_phase(g, dev) -> dict:
     """flash_decode against its plain version in float32 and bfloat16 at
     D 16, 64, 128 and 256: T not a multiple of the kernel's 32-key tile,
     pos 0, pos = T - 1, pos >= T, a negative pos (every key masked: the
-    oracle's uniform average) and phase 7's decode shape; timed there and
-    at a full 4096 cache in bfloat16 beside its plain version,
-    scaled_dot_product_attention with the mask kpos <= pos, and its bound.
-    pos reaches the kernel as a device int32, as on the main path."""
+    oracle's uniform average) and phase 7's decode shape; views of several
+    256-key chunks of the split-KV core (pos at and around the chunk
+    edges, a negative pos over 8 chunks) and D 6 (the SIMT kernel), each
+    call checked to run the kernel flash_decode.route names. Timed at
+    phase 7's decode shape and at a full 4096 cache in bfloat16 beside its
+    plain version, scaled_dot_product_attention with the mask kpos <= pos,
+    and its bound, back to back and (the kernel and SDPA) as calls
+    replayed from one CUDA graph. pos reaches the kernel as a device int32,
+    as on the main path."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_decode import flash_decode_plain
+    from repro_torch.kernels.flash_decode import flash_decode_plain, route
 
-    def case(bh, t, d, pos, dtype):
-        q, k, v = [torch.randn(shape, generator=g, device=dev).to(dtype)
+    def case(bh, t, d, pos, dtype, gen=g):
+        q, k, v = [torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for shape in ((bh, 1, d), (bh, t, d), (bh, t, d))]
         keep = (torch.arange(t, device=dev) <= pos)[None]   # (L 1, S t)
         return [q, k, v, torch.full((1,), pos, dtype=torch.int32,
                                     device=dev), keep]
 
+    # the split-KV core's own cases draw from a generator of their own, so
+    # that g's draws (and the timings after them) stay as they were
+    g_split = torch.Generator(device=dev)
+    g_split.manual_seed(25)
     cases = [(4, 100, 16, 63), (3, 70, 64, 0), (2, 100, 128, 99),
              (2, 100, 128, 120), (2, 40, 128, -1), (2, 300, 256, 200),
              tuple(FD_MAIN.values())]
+    split_cases = [(4, 1100, 128, 255), (4, 1100, 128, 256),
+                   (4, 1100, 128, 257), (2, 2000, 64, -1),
+                   (2, 777, 256, 513), (2, 45, 6, 30)]
     err = 0.0
     for dt in (torch.float32, torch.bfloat16):
-        for bh, t, d, pos in cases:
-            q, k, v, p_d, _ = case(bh, t, d, pos, dt)
-            e = check(f"flash_decode BH={bh} T={t} D={d} pos={pos}",
-                      ops.flash_decode(q, k, v, p_d),
-                      flash_decode_plain(q, k, v, pos), dt)
+        for bh, t, d, pos in cases + split_cases:
+            gen = g_split if (bh, t, d, pos) in split_cases else g
+            q, k, v, p_d, _ = case(bh, t, d, pos, dt, gen)
+            got = routed("flash_decode", route(dt, d),
+                         lambda: ops.flash_decode(q, k, v, p_d))
+            e = check(f"flash_decode {route(dt, d)} BH={bh} T={t} D={d} "
+                      f"pos={pos}", got, flash_decode_plain(q, k, v, pos),
+                      dt)
             if dt == torch.bfloat16 and (bh, t, d, pos) == \
                     tuple(FD_MAIN.values()):
                 err = e
@@ -1413,32 +1491,36 @@ def flash_decode_phase(g, dev) -> dict:
         flops, nbytes = decode_work(bh, t, d, pos, 2)
         sets = [case(bh, t, d, pos, torch.bfloat16)
                 for _ in range(n_sets(nbytes))]
-        ms = time_ms(lambda q, k, v, p_d, keep: ops.flash_decode(
-            q, k, v, p_d), sets)
+
+        def kernel(q, k, v, p_d, keep):
+            return ops.flash_decode(q, k, v, p_d)
+
+        def sdpa(q, k, v, p_d, keep):
+            return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                  attn_mask=keep)
+        ms, lib_ms = time_ms(kernel, sets), time_ms(sdpa, sets)
+        g_ms, lib_g_ms = graph_ms(kernel, sets), graph_ms(sdpa, sets)
         plain_ms = time_ms(lambda q, k, v, p_d, keep: flash_decode_plain(
             q, k, v, p_d), sets)
-        lib_ms = time_ms(lambda q, k, v, p_d, keep:
-                         F.scaled_dot_product_attention(
-                             q[None], k[None], v[None], attn_mask=keep),
-                         sets)
-        return ms, plain_ms, lib_ms, bound(flops, nbytes, "bfloat16")
+        b_ms, b_by = bound(flops, nbytes, "bfloat16")
+        print(f"[time] flash_decode {shape}: {ms:.4f} ms ({g_ms:.4f} ms in a "
+              f"CUDA graph; bound {b_ms:.4f} ms, {b_by}), plain "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ({lib_g_ms:.4f} ms "
+              f"in a graph)")
+        return dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    library_graph_ms=lib_g_ms, bound_ms=b_ms, bound_by=b_by)
 
-    ms, plain_ms, lib_ms, (b_ms, b_by) = timed(FD_MAIN)
-    lms, lplain, llib, (lb_ms, lb_by) = timed(FD_LONG)
-    print(f"[time] flash_decode full cache {FD_LONG}: {lms:.4f} ms (bound "
-          f"{lb_ms:.4f} ms, {lb_by}), plain {lplain:.4f} ms, library "
-          f"{llib:.4f} ms")
+    main, long = timed(FD_MAIN), timed(FD_LONG)
     return dict(
         name="flash_decode", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_decode.cu",
+        core="src/repro_torch/kernels/csrc/decode_split.cuh",
         replaces="src/repro/kernels/flash_decode.py:65", launches=None,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, dtype="bfloat16",
+        max_abs_err=err, **main, dtype="bfloat16",
+        kernel_route=route(torch.bfloat16, FD_MAIN["d"]),
         shape=" ".join(f"{k}={v}" for k, v in FD_MAIN.items()),
         long_context=dict(shape=" ".join(f"{k}={v}" for k, v in
-                                         FD_LONG.items()),
-                          ms=lms, plain_ms=lplain, library_ms=llib,
-                          bound_ms=lb_ms, bound_by=lb_by))
+                                         FD_LONG.items()), **long))
 
 
 def f32_agreement():
@@ -2344,6 +2426,10 @@ def attention_pair() -> dict:
         raise AssertionError(f"phase 7 flash_attention routes {routes}: "
                              f"want the 3 float32 calls on the SIMT kernel "
                              f"and the 3 bfloat16 ones on the tensor cores")
+    fd_routes = dict(ops.ROUTES["flash_decode"])
+    if fd_routes != {"split": 2}:
+        raise AssertionError(f"phase 7 flash_decode routes {fd_routes}: "
+                             f"want both calls (D 128) on the split-KV core")
     n_ffn = launches["swiglu_ffn"]
     ffn = dict(ops.ROUTES["swiglu_ffn"])
     if ffn != {"simt": n_ffn // 2, "tensor_core": n_ffn // 2}:
@@ -2351,7 +2437,7 @@ def attention_pair() -> dict:
                              f"launches: want half (float32) on the SIMT "
                              f"kernel and half (bfloat16) on the tensor cores")
     print(f"[phase 7] launches {launches}; flash_attention routes {routes}; "
-          f"swiglu_ffn routes {ffn}")
+          f"flash_decode routes {fd_routes}; swiglu_ffn routes {ffn}")
     return launches
 
 

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("swiglu", "moe_gmm", "moe_gather", "paged_attn", "mla_paged",
            "ssd_scan", "router_score", "flash_attention", "flash_decode")
-HEADERS = ("ffn_core.cuh", "ffn_tc.cuh", "convert.cuh", "wgmma.cuh")
+HEADERS = ("ffn_core.cuh", "ffn_tc.cuh", "convert.cuh", "wgmma.cuh",
+           "decode_split.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -37,7 +38,8 @@ _L = ctypes.c_longlong
 # scale as c_float, element strides as c_longlong. A source may export more
 # than one entry: moe_gmm.cu holds both grouped expert FFNs of the Pallas
 # file it ports, over shared cores, so they build in one nvcc process; the
-# `_tc_launch` entries are the tensor-core routes of their kernels.
+# `_tc_launch` entries are the tensor-core routes of their kernels, and
+# `flash_decode_split_launch` flash_decode's split-KV route.
 SIGNATURES = {
     "swiglu_ffn_launch": ("swiglu", [_P] * 6 + [_I] * 5 + [_P]),
     "swiglu_ffn_tc_launch": ("swiglu", [_P] * 6 + [_I] * 4 + [_P]),
@@ -48,7 +50,7 @@ SIGNATURES = {
     "moe_gather_launch": ("moe_gather", [_P] * 7 + [_I] * 7 + [_P]),
     "moe_gather_tc_launch": ("moe_gather", [_P] * 7 + [_I] * 7 + [_P]),
     "paged_attn_decode_launch": ("paged_attn",
-                                 [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
+                                 [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
     "mla_paged_decode_launch": ("mla_paged",
                                 [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
     "ssd_scan_launch": ("ssd_scan",
@@ -59,10 +61,13 @@ SIGNATURES = {
     "flash_attention_tc_launch": ("flash_attention",
                                   [_P] * 4 + [_I] * 4 + [_F, _I, _P]),
     "flash_decode_launch": ("flash_decode", [_P] * 5 + [_I] * 3 + [_F, _I, _P]),
+    "flash_decode_split_launch": ("flash_decode",
+                                  [_P] * 7 + [_I] * 4 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict = {}
 
 
 def nvcc_path() -> str:
@@ -148,5 +153,10 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def entry(fn_name: str):
-    """The C launch function `fn_name`, from the library of its source."""
-    return getattr(library(SIGNATURES[fn_name][0]), fn_name)
+    """The C launch function `fn_name`, from the library of its source
+    (looked up once: a wrapper's call is host time on every launch)."""
+    fn = _entries.get(fn_name)
+    if fn is None:
+        fn = _entries[fn_name] = getattr(library(SIGNATURES[fn_name][0]),
+                                         fn_name)
+    return fn

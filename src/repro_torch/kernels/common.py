@@ -81,8 +81,45 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+# csrc/decode_split.cuh kChunk: the logical key positions one block of the
+# split-KV decode core takes. A constant, never chosen from a call's rows,
+# block size or table width: a row's arithmetic must not depend on them.
+DECODE_CHUNK = 256
+
+
+def decode_chunks(view: int) -> int:
+    """Chunks of DECODE_CHUNK keys that a view of `view` key positions
+    spans: the split-KV core's grid per (row, head); above 1 its merge
+    runs."""
+    if view < 1:
+        raise ValueError(f"a decode view holds at least one key; got {view}")
+    return -(-view // DECODE_CHUNK)
+
+
+def decode_workspace(rows: int, heads: int, hd: int, view: int,
+                     device: torch.device):
+    """(nch, buf, part_acc, part_ml) for a split-KV decode call: one float32
+    allocation `buf` (the caller keeps it alive across the launch) holding
+    the partials (rows, heads, nch, hd) at pointer part_acc and their (m, l)
+    pairs (rows, heads, nch, 2) at pointer part_ml; or None and two NULL
+    pointers where the view fits one chunk (the split kernel then writes
+    the output itself and no merge runs)."""
+    nch = decode_chunks(view)
+    if nch == 1:
+        return nch, None, 0, 0
+    n = rows * heads * nch
+    buf = torch.empty(n * (hd + 2), dtype=torch.float32, device=device)
+    base = buf.data_ptr()
+    return nch, buf, base, base + 4 * n * hd
+
+
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current stream on `device` (a CUDA tensor's
+    device always carries its index), read without building a torch Stream
+    object: every wrapper calls it once a launch. The binding is in every
+    CUDA build of PyTorch since 2.0 (Inductor's and Triton's launchers read
+    it); the port runs on 2.11."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def raise_on_error(err: int, what: str) -> None:

@@ -48,7 +48,7 @@
 // warpgroups where an expert has more than 64 rows: they share each B
 // tile, which halves its reads from L2 (at T 512 the 64-row blocks read
 // 136 MB from L2 for 11.5 MB of weights; two warpgroups took swiglu_ffn
-// from 0.0384 to 0.0286 ms inside a CUDA graph, tools/bench_ffn.py,
+// from 0.0384 to 0.0286 ms inside a CUDA graph, tools/bench_ab.py ffn,
 // PERF.md). At 64 rows or fewer a second one would hold only padding and
 // cost a ring stage (0.0622 against 0.0535 ms at zamba2's decode), and in
 // stage 2 two were slower (0.0326 ms). kOwner and kGather keep one: a

@@ -1,6 +1,6 @@
 // flash_decode on Hopper: replaces the Pallas kernel
-// repro/kernels/flash_decode.py (flash_decode), single-query attention of
-// q (BH, 1, D) against a contiguous cache k, v (BH, T, D)
+// repro/kernels/flash_decode.py (flash_decode, :55 / :65), single-query
+// attention of q (BH, 1, D) against a contiguous cache k, v (BH, T, D)
 //
 //     out[b] = sum_j softmax_j(q[b] . k[b, j] * D^-0.5) v[b, j]
 //
@@ -12,27 +12,35 @@
 //
 // Bound on an H100: a row reads its live K and V rows once against 4 * D
 // FLOPs a key, so it is bound by bytes: at llama2-7b's decode (BH 128,
-// D 128, pos 1024) 67 MB of bf16 K/V, 0.020 ms at 3.35 TB/s.
+// D 128, pos 1024) 67 MB of bf16 K/V, 0.020 ms at 3.35 TB/s; at a full
+// 4096 cache 268 MB, 0.080 ms.
 //
-// Design. The Pallas grid's sequential kv axis becomes a loop inside the
-// block: one block of 128 threads per row bh walks the live keys (those
-// <= min(pos, T - 1); all T where pos < 0, whose keys all score -1e30 in
-// the reference) in tiles of KT = 32, and never reads a key past them. A
-// tile's K and V rows are staged into shared memory as fp32 with 16-byte
-// loads where rows allow them, all of a tile's loads in flight at once,
-// rows padded to Dp = 4 x an odd number of floats. Four threads score a
-// key (interleaved quarters of D, summed by shuffles, so a warp's reads
-// of 8 keys fall on distinct banks); warp 0 runs the online softmax over
-// the tile's 32 keys with warp shuffles; each thread then owns one or two
-// output channels and accumulates p V in registers. Splitting T over several blocks (flash-decoding) and
-// TMA / mbarrier pipelining are later work. csrc/paged_attn.cu walks a
-// block table with the same softmax; this kernel reads a contiguous cache.
+// Two kernels; flash_decode.route (kernels/flash_decode.py) picks one by
+// (dtype, D):
+//  * flash_decode_split_launch, where D x itemsize is a multiple of 16 (a
+//    row is whole 16-byte vectors): the split-KV decode core of
+//    csrc/decode_split.cuh, shared with paged_attn_decode. T is cut into
+//    chunks of 256 keys spread over blocks, each warp streams its keys
+//    through a cp.async ring, and a second kernel merges the chunks in
+//    order; its note says what the design does about latency and
+//    occupancy.
+//  * flash_decode_launch, every other D (bf16 D 100, f32 D 6): one block
+//    of 128 threads per row walks the live keys (those <= min(pos, T - 1);
+//    all T where pos < 0, whose keys all score -1e30 in the reference) in
+//    tiles of KT = 32, staged into shared memory as fp32 with 16-byte
+//    loads where rows allow them, rows padded to Dp = 4 x an odd number of
+//    floats. Four threads score a key (interleaved quarters of D, summed
+//    by shuffles, so a warp's reads of 8 keys fall on distinct banks);
+//    warp 0 runs the online softmax over the tile's 32 keys; each thread
+//    then owns one or two output channels and accumulates p V in
+//    registers.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
 #include "convert.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
@@ -236,5 +244,41 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
     return (int)launch<float>(q, k, v, ps, out, bh, t, d, scale, st);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(q, k, v, ps, out, bh, t, d, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split-KV core's route: the same operands, D x itemsize a multiple of
+// 16 up to 256, q, k and v 16-byte aligned; part_acc (bh, nch, D) and
+// part_ml (bh, nch, 2), float32, are the merge's workspace, nch = ceil(t /
+// 256), both may be null where nch is 1. Returns the launch error.
+extern "C" int flash_decode_split_launch(const void* q, const void* k,
+                                         const void* v, const void* pos,
+                                         void* out, void* part_acc,
+                                         void* part_ml, int bh, int t, int d,
+                                         int nch, float scale, int dtype,
+                                         void* stream) {
+  if (bh <= 0 || t <= 0) return (int)cudaErrorInvalidValue;
+  dsplit::Params P{};
+  P.q = q;
+  P.k = k;
+  P.v = v;
+  P.table = nullptr;       // row b's keys: rows b * t .. b * t + t - 1
+  P.pos = static_cast<const int*>(pos);
+  P.out = out;
+  P.part_acc = static_cast<float*>(part_acc);
+  P.part_ml = static_cast<float*>(part_ml);
+  P.rows = bh;
+  P.kh = 1;
+  P.grp = 1;
+  P.hd = d;
+  P.nblk = 1;
+  P.bs = t;
+  P.window = 0;
+  P.pos_stride = 0;        // one pos shared by every row
+  P.nch = nch;
+  P.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dsplit::run<float, 1>(P, st);
+  if (dtype == 1) return (int)dsplit::run<__nv_bfloat16, 1>(P, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -36,8 +36,11 @@
 // registers, indexed by compile-time trip counts (NC is a template
 // argument). Only the live tiles are visited, from 0 to pos[b] / KT: the
 // Pallas grid walks every block and masks it, and a wholly masked block
-// adds exactly zero there. wgmma, TMA and splitting long contexts over
-// blocks are later work.
+// adds exactly zero there. A row with pos[b] < 0 has every key masked, and
+// the reference's softmax is then the uniform average of the view's latent
+// rows: the kernel counts every view key at the score -1e30 there. wgmma,
+// TMA and splitting long contexts over blocks (the chunks and in-order
+// merge of csrc/decode_split.cuh fit latent rows too) are later work.
 //
 // The tile is KT logical positions whatever the pool's block size, and a
 // head's sums never depend on the group it shares a block with, so a
@@ -47,6 +50,7 @@
 // whatever the number of rows in the call.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -156,10 +160,14 @@ __global__ void __launch_bounds__(kThreads)
 
   const int b = blockIdx.x, h0 = blockIdx.y * grp, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int p_last = min(pos[b], nblk * bs - 1);
-  const int t_last = p_last >= 0 ? p_last / KT : -1;
+  // the counted keys: those <= pos[b] in the view; where pos[b] < 0, every
+  // view key, scored -1e30 (a uniform average, as the reference's softmax
+  // over a fully masked row)
+  const int p_pos = pos[b];
+  const int p_last = p_pos < 0 ? nblk * bs - 1 : min(p_pos, nblk * bs - 1);
+  const int t_last = p_last / KT;
   const int* row_table = table + (size_t)b * nblk;
-  if (t_last >= 0) {
+  {
     copy_tile(tiles, tiles + KT * r, cc_pool, cp_pool, row_table, 0, p_last,
                r, dr, bs, tid);
     cp_async_commit();
@@ -241,7 +249,8 @@ __global__ void __launch_bounds__(kThreads)
       const int idx = lane >> 1;
       const int g = idx / kKeysPerWarp, key = k0 + idx % kKeysPerWarp;
       if ((lane & 1) == 0 && g < grp)
-        ss[key * grp + g] = t * KT + key <= p_last ? sc[0] * scale : kNegInf;
+        ss[key * grp + g] = t * KT + key > p_last ? -INFINITY
+                            : p_pos < 0 ? kNegInf : sc[0] * scale;
     }
     __syncthreads();
     if (warp < grp) {

@@ -2,29 +2,49 @@
 ``pos`` masked.
 
 Port of the Pallas kernel ``repro/kernels/flash_decode.py::flash_decode``.
-The CUDA kernel is ``csrc/flash_decode.cu`` (its source note states the
-bound on an H100 and the design); the plain version below is the oracle
-``repro/kernels/ref.py::flash_decode_ref``: fp32 scores scaled by D^-0.5,
-keys at positions > pos scored -1e30, a softmax over the T keys, p rounded
-to v's dtype before the PV product, the output in v's dtype.
+The CUDA source is ``csrc/flash_decode.cu`` (its note states the bound on
+an H100 and the design). It holds two hand-written kernels, and
+``route(dtype, D)`` picks one: "split", the split-KV decode core of
+``csrc/decode_split.cuh`` shared with ``paged_attn_decode``, where a row is
+whole 16-byte vectors (D x itemsize a multiple of 16: every head width in
+``configs/``); "simt", the one-block-a-row kernel, for every other D. The
+plain version below is the oracle ``repro/kernels/ref.py::
+flash_decode_ref``: fp32 scores scaled by D^-0.5, keys at positions > pos
+scored -1e30, a softmax over the T keys, p rounded to v's dtype before the
+PV product, the output in v's dtype.
 
 ``pos`` is one last valid index shared by every row, as in the reference.
-The CUDA kernel reads it from a device int32, so a call makes no host sync,
-and reads no key past min(pos, T - 1). Unlike the JAX wrapper, which pads T
+The CUDA kernels read it from a device int32, so a call makes no host sync,
+and read no key past min(pos, T - 1). Unlike the JAX wrapper, which pads T
 to its block so that a pos >= T lets its padded zero keys into the
 softmax, nothing is padded: keys at and past T do not exist for either
 version.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (check_float_operands, raise_on_error,
+from repro_torch.kernels.common import (aligned16, check_float_operands,
+                                        decode_workspace, raise_on_error,
                                         stream_ptr)
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256          # csrc/flash_decode.cu: channels tid, tid + 128
+MAX_HEAD_DIM = 256          # csrc/flash_decode.cu: both kernels
+# launches of each route since the last reset: which kernel a call ran
+ROUTE_LAUNCHES: Counter = Counter()
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The CUDA kernel that serves a call: "split" (the split-KV core,
+    csrc/decode_split.cuh) where D x itemsize is a multiple of 16 up to
+    MAX_HEAD_DIM, the 16-byte vectors its cp.async ring copies; else
+    "simt" (bfloat16 D 100, float32 D 6)."""
+    if (d * dtype.itemsize) % 16 == 0 and 1 <= d <= MAX_HEAD_DIM:
+        return "split"
+    return "simt"
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,8 +63,9 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       pos: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream. pos must be a
-    contiguous one-element int32 tensor on the operands' device."""
+    """Launch the kernel that ``route`` names on the current stream. pos
+    must be a contiguous one-element int32 tensor on the operands'
+    device."""
     dt, dev = check_float_operands(q, k, v)
     if q.dim() != 3 or q.shape[1] != 1 or k.dim() != 3 or \
             k.shape != v.shape or k.shape[0] != q.shape[0] or \
@@ -64,9 +85,23 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"pos must be a contiguous one-element int32 "
                          f"tensor on {dev}; got {pos.dtype} "
                          f"{tuple(pos.shape)} on {pos.device}")
-    out = torch.empty_like(q)
-    err = build.entry("flash_decode_launch")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), bh, t, d, float(d ** -0.5), dt, stream_ptr(dev))
-    raise_on_error(err, "flash_decode")
+    path = route(q.dtype, d)
+    scale = float(d ** -0.5)
+    if path == "split":
+        # its 16-byte copies need 16-byte aligned bases (a view may start
+        # off that grid)
+        q, k, v = aligned16(q), aligned16(k), aligned16(v)
+        out = torch.empty_like(q)
+        nch, _work, part_acc, part_ml = decode_workspace(bh, 1, d, t, dev)
+        err = build.entry("flash_decode_split_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), part_acc, part_ml, bh, t, d, nch, scale, dt,
+            stream_ptr(dev))
+    else:
+        out = torch.empty_like(q)
+        err = build.entry("flash_decode_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), bh, t, d, scale, dt, stream_ptr(dev))
+    raise_on_error(err, f"flash_decode ({path})")
+    ROUTE_LAUNCHES[path] += 1
     return out

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import moe_gather as _gather
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import swiglu as _swiglu
@@ -53,7 +54,8 @@ ROUTES = {"swiglu_ffn": _swiglu.ROUTE_LAUNCHES,
           "moe_gmm_ragged": _gmm.RAGGED_ROUTE_LAUNCHES,
           "moe_gather": _gather.ROUTE_LAUNCHES,
           "moe_gmm": _gmm.ROUTE_LAUNCHES,
-          "flash_attention": _fa.ROUTE_LAUNCHES}
+          "flash_attention": _fa.ROUTE_LAUNCHES,
+          "flash_decode": _fd.ROUTE_LAUNCHES}
 
 # Row tile of the ragged expert layout ``moe_gmm_ragged`` consumes: one
 # constant per process, never derived from a shape, because the layout block

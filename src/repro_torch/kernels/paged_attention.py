@@ -7,8 +7,11 @@ paged_attn_decode``: row b is one query token at logical position pos[b]
 of a lane whose logical block j lives in physical block table[b, j]; it
 attends every key at a logical position <= pos[b] (and > pos[b] - window
 when window > 0) with an fp32 softmax, p rounded to the pool's dtype before
-the PV product. The CUDA kernel is ``csrc/paged_attn.cu`` (its source note
-states the bound on an H100 and the design); the plain version below is the
+the PV product; a row whose mask keeps no key of its view (pos[b] < 0)
+is the uniform average of the view's V rows, as the oracle's softmax over
+scores that are all -1e30. The CUDA kernel is ``csrc/paged_attn.cu``, the
+entry of the split-KV decode core ``csrc/decode_split.cuh`` (their notes
+state the bound on an H100 and the design); the plain version below is the
 materializing oracle of ``repro/kernels/ref.py::paged_attn_decode_ref``:
 assemble each row's logical view through the table, then masked softmax.
 
@@ -30,15 +33,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (check_float_operands, raise_on_error,
+from repro_torch.kernels.common import (aligned16, check_float_operands,
+                                        decode_workspace, raise_on_error,
                                         stream_ptr)
 
 NEG_INF = -1e30
 
 # csrc/paged_attn.cu limits: hd a multiple of 8 (16-byte rows in bf16) and
-# at most 256, and grp * hd at most 128 threads x 16 accumulators
+# at most 256; a query-head group of any width (sliced over blocks)
 MAX_HEAD_DIM = 256
-MAX_GROUP_ELEMS = 128 * 16
 # csrc/mla_paged.cu limits: r and dr multiples of 8, at most 1024
 MLA_MAX_RANK = 1024
 
@@ -85,10 +88,9 @@ def paged_attn_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)} do "
                          f"not form a single-query GQA call")
     grp = h // kh
-    if hd % 8 or hd > MAX_HEAD_DIM or grp * hd > MAX_GROUP_ELEMS:
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes hd a multiple of 8 up to "
-                         f"{MAX_HEAD_DIM} and grp*hd <= {MAX_GROUP_ELEMS}; "
-                         f"got hd={hd}, grp={grp}")
+                         f"{MAX_HEAD_DIM}; got hd={hd}")
     for name, t, shape in (("table", table, (b, table.shape[-1])),
                            ("pos", pos, (b,))):
         if t.dtype != torch.int32 or t.device != dev or \
@@ -96,11 +98,17 @@ def paged_attn_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous int32 {shape} "
                              f"tensor on {dev}; got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
+    # its 16-byte copies need 16-byte aligned bases (a view may start off
+    # that grid)
+    q, k_pool, v_pool = aligned16(q), aligned16(k_pool), aligned16(v_pool)
+    nblk = table.shape[1]
     out = torch.empty_like(q)
+    nch, _work, part_acc, part_ml = decode_workspace(b, h, hd, nblk * bs,
+                                                     dev)
     err = build.entry("paged_attn_decode_launch")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), b, kh, grp, hd, table.shape[1], bs,
-        int(window), float(scale), dt, stream_ptr(dev))
+        pos.data_ptr(), out.data_ptr(), part_acc, part_ml, b, kh, grp, hd,
+        nblk, bs, int(window), nch, float(scale), dt, stream_ptr(dev))
     raise_on_error(err, "paged_attn_decode")
     return out
 

@@ -209,6 +209,186 @@ def test_cuda_mla_rows_are_width_invariant():
     assert torch.equal(contiguous, whole)
 
 
+def _pools(g, dev, dt, rows, depth, bs, width):
+    """Pools of `width` channels a key (a trailing (kh, hd) for GQA, (r,)
+    or (dr,) for MLA) holding `rows` lanes of depth + 1 keys in fragmented
+    blocks, block 0 poisoned trash; returns (pool, pool, table)."""
+    nblk = -(-(depth + 1) // bs)
+    nblocks = rows * nblk + 1
+    a = torch.randn((nblocks, bs, *width), generator=g, device=dev)
+    b = torch.randn((nblocks, bs, *width), generator=g, device=dev)
+    a[0], b[0] = 1e4, -1e4
+    table = (torch.randperm(nblocks - 1, generator=g, device=dev) + 1
+             ).reshape(rows, nblk).to(torch.int32)
+    return a.to(dt), b.to(dt), table
+
+
+def _close_rows(got, ref, dt):
+    """Each row against a tolerance of its own scale (a masked row is the
+    small mean of its view)."""
+    for i in range(got.shape[0]):
+        _close(got[i], ref[i], dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("depth,bs,window", [(75, 16, 0), (75, 16, 30),
+                                             (700, 16, 0), (700, 8, 100)])
+def test_cuda_paged_kernels_match_plain_at_negative_pos(dtype, depth, bs,
+                                                        window):
+    """A row at pos -1 masks every key of its view: both paged kernels
+    return the uniform average of the view's V (latent) rows, as their
+    plain versions and ref.py do, beside rows at pos >= 0 in the same
+    call; views of one and of several 256-key chunks, and windows (which
+    mask nothing more there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.paged_attention import (mla_paged_decode_plain,
+                                                     paged_attn_decode_plain)
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    rows, kh, grp, hd = 4, 2, 2, 64
+    kp, vp, table = _pools(g, dev, dt, rows, depth, bs, (kh, hd))
+    pos = torch.tensor([depth, -1, depth // 2, -1], dtype=torch.int32,
+                       device=dev)
+    q = torch.randn((rows, 1, kh * grp, hd), generator=g, device=dev).to(dt)
+    tops.reset_launches()
+    got = tops.paged_attn_decode(q, kp, vp, table=table, pos=pos,
+                                 window=window, scale=hd ** -0.5)
+    ref = paged_attn_decode_plain(q, kp, vp, table, pos, window,
+                                  scale=hd ** -0.5)
+    heads, r, dr = 16, 64, 16
+    cc, _, mtable = _pools(g, dev, dt, rows, depth, bs, (r,))
+    cp, _, _ = _pools(g, dev, dt, rows, depth, bs, (dr,))
+    cp = cp[:cc.shape[0]]
+    qa = torch.randn((rows, heads, r), generator=g, device=dev).to(dt)
+    qp = torch.randn((rows, heads, dr), generator=g, device=dev).to(dt)
+    got_m = tops.mla_paged_decode(qa, qp, cc, cp, table=mtable, pos=pos,
+                                  scale=0.1)
+    ref_m = mla_paged_decode_plain(qa, qp, cc, cp, mtable, pos, scale=0.1)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["paged_attn_decode"] == 1
+    assert tops.LAUNCHES["mla_paged_decode"] == 1
+    _close_rows(got, ref, dt)
+    _close_rows(got_m, ref_m, dt)
+    assert got[1].float().abs().max() > 0     # not the zeros of old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_attn_rows_are_bitwise_invariant(dtype):
+    """A row's paged_attn_decode output is bitwise the same alone and inside
+    a call of many rows, through a paged table, the same lane held as a
+    contiguous cache (a pool of one block per lane) or re-blocked by 8, and
+    through a table wider by trailing trash entries or narrow enough for
+    one 256-key chunk (the merge then does not run); at pos just below, at
+    and past the chunk edges, with and without a window; and run to run.
+    Every row has pos >= 0: at pos < 0 the view itself is the function's
+    input."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    rows, kh, grp, hd, bs, nblk = 12, 4, 2, 64, 16, 40      # view 640
+    kp, vp, table = _pools(g, dev, dt, rows, nblk * bs - 1, bs, (kh, hd))
+    pos = torch.tensor([0, 254, 255, 256, 257, 511, 512, 513, 639, 100,
+                        300, 600], dtype=torch.int32, device=dev)
+    q = torch.randn((rows, 1, kh * grp, hd), generator=g, device=dev).to(dt)
+    lanes_k = kp[table.long()].reshape(rows, 1, nblk * bs, kh, hd)
+    lanes_v = vp[table.long()].reshape(rows, 1, nblk * bs, kh, hd)
+    lane_table = torch.arange(rows, dtype=torch.int32, device=dev)[:, None]
+    by8_table = torch.arange(rows * nblk * 2, dtype=torch.int32,
+                             device=dev).reshape(rows, -1)
+    wide = torch.cat([table, table.new_zeros((rows, 20))], 1)
+    short = pos < 256
+
+    def call(q, kp, vp, table, pos, window):
+        return tops.paged_attn_decode(q, kp, vp, table=table, pos=pos,
+                                      window=window, scale=hd ** -0.5)
+
+    for window in (0, 200):
+        whole = call(q, kp, vp, table, pos, window)
+        assert torch.equal(whole, call(q, kp, vp, table, pos, window))
+        for i in range(rows):
+            assert torch.equal(whole[i:i + 1],
+                               call(q[i:i + 1], kp, vp, table[i:i + 1],
+                                    pos[i:i + 1], window))
+        assert torch.equal(whole, call(q, lanes_k[:, 0], lanes_v[:, 0],
+                                       lane_table, pos, window))
+        assert torch.equal(whole, call(
+            q, lanes_k.reshape(-1, 8, kh, hd), lanes_v.reshape(-1, 8, kh, hd),
+            by8_table, pos, window))
+        assert torch.equal(whole, call(q, kp, vp, wide, pos, window))
+        assert torch.equal(whole[short], call(
+            q[short], kp, vp, table[short][:, :256 // bs].contiguous(),
+            pos[short], window))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kh,grp,hd,depth,window",
+                         [(2, 48, 128, 300, 0), (1, 48, 128, 700, 0),
+                          (2, 1, 256, 900, 0), (4, 1, 64, 1000, 300),
+                          (2, 3, 96, 600, 520), (2, 8, 256, 400, 0)])
+def test_cuda_paged_attn_long_views_match_plain(dtype, kh, grp, hd, depth,
+                                               window):
+    """paged_attn_decode over views of several 256-key chunks against its
+    plain version: granite's 48 query heads per kv head of 128 (once
+    refused: grp x hd past 2048), hd 256, windows that kill the leading
+    chunks, a group of 3 and hd 96 (lanes and heads left idle)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.paged_attention import paged_attn_decode_plain
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    rows = 4
+    kp, vp, table = _pools(g, dev, dt, rows, depth, 16, (kh, hd))
+    pos = torch.tensor([depth, depth - 1, depth // 2, 5], dtype=torch.int32,
+                       device=dev)
+    q = torch.randn((rows, 1, kh * grp, hd), generator=g, device=dev).to(dt)
+    tops.reset_launches()
+    got = tops.paged_attn_decode(q, kp, vp, table=table, pos=pos,
+                                 window=window, scale=hd ** -0.5)
+    ref = paged_attn_decode_plain(q, kp, vp, table, pos, window,
+                                  scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["paged_attn_decode"] == 1
+    assert got.shape == q.shape and got.dtype == dt
+    _close_rows(got, ref, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_decode_rows_are_bitwise_invariant(dtype):
+    """flash_decode on its split route: a row is bitwise the same alone and
+    in a call, and through a cache of 1100 keys (5 chunks, merged) or cut to
+    200 (one chunk, no merge) when pos leaves one chunk live."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+               for shape in ((6, 1, 128), (6, 1100, 128), (6, 1100, 128)))
+    for pos in (100, 255, 700):
+        whole = tops.flash_decode(q, k, v, pos)
+        assert torch.equal(whole, tops.flash_decode(q, k, v, pos))
+        assert torch.equal(whole[2:3], tops.flash_decode(
+            q[2:3], k[2:3].contiguous(), v[2:3].contiguous(), pos))
+        if pos < 200:
+            assert torch.equal(whole, tops.flash_decode(
+                q, k[:, :200].contiguous(), v[:, :200].contiguous(), pos))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("k,n", [(1024, 1024), (5120, 1536)])
@@ -407,10 +587,17 @@ FLASH_ATTN_CASES += [(bh, s, t, d, causal) for d in (64, 128, 256)
                       (2, 200, 259, False), (3, 1, 77, False),
                       (3, 77, 1, True)]] + [(264, 130, 130, 128, True)]
 # (BH, T, D, pos): the reference test's shapes, pos at and past T, a
-# negative pos (every key masked: the oracle's uniform average), D 256
+# negative pos (every key masked: the oracle's uniform average), D 256;
+# views of several 256-key chunks (phase 7's T 1100, pos at and around the
+# chunk edges, a negative pos over 3 chunks, a full 4096 cache at BH 128),
+# and D 6 (the SIMT route in both dtypes; bf16 D 100 too)
 FLASH_DECODE_CASES = [(4, 100, 32, 63), (2, 512, 64, 511), (3, 70, 16, 0),
                       (1, 33, 8, 20), (2, 100, 128, 120), (2, 100, 128, 99),
                       (2, 40, 64, -1), (2, 300, 256, 200), (3, 45, 100, 30)]
+FLASH_DECODE_CASES += [(4, 1100, 128, 1024), (3, 777, 64, 255),
+                       (3, 777, 64, 256), (3, 777, 64, 513),
+                       (2, 600, 256, -1), (128, 4096, 128, 4095),
+                       (2, 45, 6, 30)]
 
 
 @pytest.mark.cuda
@@ -448,10 +635,12 @@ def test_cuda_flash_attention_matches_plain(dtype, bh, s, t, d, causal):
 def test_cuda_flash_decode_matches_plain(dtype, bh, t, d, pos):
     """flash_decode against its plain version (ref.flash_decode_ref's
     function: no padded keys, so pos >= T attends exactly the T keys); pos
-    handed over as an int and as a device tensor; one launch a call."""
+    handed over as an int and as a device tensor; one launch a call, on
+    the kernel that ``route`` names."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    from repro_torch.kernels.flash_decode import flash_decode_plain
+    from repro_torch.kernels.flash_decode import (ROUTE_LAUNCHES,
+                                                  flash_decode_plain, route)
     dt = getattr(torch, dtype)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -464,6 +653,7 @@ def test_cuda_flash_decode_matches_plain(dtype, bh, t, d, pos):
     ref = flash_decode_plain(q, k, v, pos)
     torch.cuda.synchronize()
     assert tops.LAUNCHES["flash_decode"] == 2
+    assert ROUTE_LAUNCHES == {route(dt, d): 2}
     assert got.shape == (bh, 1, d) and got.dtype == dt
     assert torch.equal(got, again)
     _close(got, ref, dt)

@@ -65,18 +65,31 @@ def _mla_case(rng, *, b, h, r, dr, bs, nblk):
     return qa, qp, cc, cp, table, pos
 
 
+def _with_negative_pos_row(rng, qa, qp, table, pos):
+    """The case with a sixth row at pos -1 on row 0's lane: every key
+    masked, so the softmax is the uniform average of the view."""
+    qa = np.concatenate([qa, rng.standard_normal(qa[:1].shape).astype(
+        np.float32)])
+    qp = np.concatenate([qp, rng.standard_normal(qp[:1].shape).astype(
+        np.float32)])
+    return (qa, qp, np.concatenate([table, table[:1]]),
+            np.concatenate([pos, np.array([-1], np.int32)]))
+
+
 @pytest.mark.parametrize("bs", [4, 8])
 def test_mla_paged_decode_plain_matches_jax(bs):
     rng = np.random.default_rng(bs)
     qa, qp, cc, cp, table, pos = _mla_case(rng, b=5, h=4, r=32, dr=8, bs=bs,
                                            nblk=5)
+    qa, qp, table, pos = _with_negative_pos_row(rng, qa, qp, table, pos)
     scale = (16 + 8) ** -0.5
     want = np.asarray(jops.mla_paged_decode(
         *(jnp.asarray(a) for a in (qa, qp, cc, cp)),
         table=jnp.asarray(table), pos=jnp.asarray(pos), scale=scale))
     t = [torch.from_numpy(a) for a in (qa, qp, cc, cp, table, pos)]
     got = mla_paged_decode_plain(*t, scale=scale)
-    for sl in (slice(0, 4), slice(4, 5)):        # real rows, the trash row
+    # real rows, the trash row, the pos -1 row
+    for sl in (slice(0, 4), slice(4, 5), slice(5, 6)):
         ref = want[sl]
         np.testing.assert_allclose(got.numpy()[sl], ref, rtol=0,
                                    atol=1e-5 * np.abs(ref).max())
@@ -85,6 +98,30 @@ def test_mla_paged_decode_plain_matches_jax(bs):
                                    scale=scale)
     assert torch.equal(routed, got)
     assert tops.LAUNCHES["mla_paged_decode"] == 0
+
+
+@pytest.mark.parametrize("p", [-1, -5])
+def test_mla_paged_decode_plain_at_negative_pos_is_the_view_mean(p):
+    """A row whose mask keeps no key (pos < 0) is the uniform average of its
+    view's latent rows (nblk x bs keys), in the JAX kernel and the plain
+    version alike: the function the CUDA kernel is held to on the card."""
+    rng = np.random.default_rng(20 - p)
+    qa, qp, cc, cp, table, pos = _mla_case(rng, b=4, h=4, r=32, dr=8, bs=4,
+                                           nblk=5)
+    pos[:] = p
+    scale = (16 + 8) ** -0.5
+    want = np.asarray(jops.mla_paged_decode(
+        *(jnp.asarray(a) for a in (qa, qp, cc, cp)),
+        table=jnp.asarray(table), pos=jnp.asarray(pos), scale=scale))
+    got = mla_paged_decode_plain(*(torch.from_numpy(a) for a in
+                                   (qa, qp, cc, cp, table, pos)),
+                                 scale=scale).numpy()
+    mean = np.repeat(cc[table].reshape(4, 20, 32).mean(axis=1)[:, None], 4,
+                     axis=1)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(got, mean, rtol=0,
+                               atol=1e-5 * np.abs(mean).max())
 
 
 @functools.lru_cache(maxsize=None)

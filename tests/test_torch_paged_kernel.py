@@ -49,10 +49,12 @@ def _case(rng, *, b, kh, grp, hd, bs, nblk, poison=1e4):
 @pytest.mark.parametrize("window", [0, 13])
 def test_paged_attn_plain_matches_jax(bs, grp, window):
     """window 13 with lanes 2 and 3 deep in their tables masks whole
-    leading blocks."""
+    leading blocks; the last row, at pos -1, masks every key (the view's
+    mean)."""
     rng = np.random.default_rng(bs * 10 + grp + window)
-    q, kp, vp, table, pos = _case(rng, b=5, kh=2, grp=grp, hd=16, bs=bs,
+    q, kp, vp, table, pos = _case(rng, b=6, kh=2, grp=grp, hd=16, bs=bs,
                                   nblk=6)
+    pos[5] = -1
     scale = 16 ** -0.5
     want = jops.paged_attn_decode(jnp.asarray(q), jnp.asarray(kp),
                                   jnp.asarray(vp), table=jnp.asarray(table),
@@ -66,6 +68,31 @@ def test_paged_attn_plain_matches_jax(bs, grp, window):
                                     window=window, scale=scale)
     assert torch.equal(routed, got)
     assert tops.LAUNCHES["paged_attn_decode"] == 0
+
+
+@pytest.mark.parametrize("window", [0, 13])
+@pytest.mark.parametrize("p", [-1, -7])
+def test_paged_attn_plain_at_negative_pos_is_the_view_mean(window, p):
+    """A row whose mask keeps no key (pos < 0) is the uniform average of
+    its view's V rows (nblk x bs keys, trash entries included), in the
+    JAX kernel and the plain version alike: the function the CUDA kernel is
+    held to on the card."""
+    rng = np.random.default_rng(40 + window - p)
+    q, kp, vp, table, pos = _case(rng, b=4, kh=2, grp=2, hd=16, bs=4, nblk=6)
+    pos[:] = p
+    scale = 16 ** -0.5
+    want = np.asarray(jops.paged_attn_decode(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        table=jnp.asarray(table), pos=jnp.asarray(pos), window=window,
+        scale=scale))
+    got = paged_attn_decode_plain(*(torch.from_numpy(a) for a in
+                                    (q, kp, vp, table, pos)), window,
+                                  scale=scale).numpy()
+    view = vp[table].reshape(4, 24, 2, 16)           # (b, t, kh, hd)
+    mean = np.repeat(view.mean(axis=1), 2, axis=1)[:, None]
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, mean, atol=1e-5 * np.abs(mean).max(),
+                               rtol=0)
 
 
 @pytest.mark.parametrize("window", [0, 5])
