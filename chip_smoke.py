@@ -113,8 +113,11 @@ calls replayed from one CUDA graph) and at zamba2-1.2b's decode (T 4, d
 Phase 2 also holds ssd_scan against its plain version (float32, and bf16
 inputs, |err| <= 1e-4 max|ref|: the arithmetic is float32 in both) at
 mamba2's prefill shape from a zero and a random state, a length that is
-not a multiple of the kernel's chunk, a long forward (2 x 2048) and
-zamba2's widths, and times it at the prefill shape; moe_gmm at C = 8, 1,
+not a multiple of the kernel's chunk, 2 x 2048 from a zero and a random
+state, a ragged 1000 tokens from a random state and zamba2's widths, and
+each of its three passes against its plain pass at 2 x 2048 and 1000
+tokens, and times it at the prefill shape (also as calls replayed from
+one CUDA graph); moe_gmm at C = 8, 1,
 70 and 130 and at deepseek-v2's expert widths (E 160, d 5120, m 1536, C =
 8, where it is timed, beside the SIMT kernel in bfloat16 and float32; in
 bfloat16 also at C 1, 8, 70 and 130 on 4 of those experts), and
@@ -153,9 +156,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 FMA
-# outside them, and HBM3 bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores,
+# fp32 FMA outside them, and HBM3 bandwidth
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 # the kernels of the GLU-FFN cores (ffn_tc.cuh for bf16, ffn_core.cuh)
 FFN_KERNELS = ("swiglu_ffn", "moe_gmm_ragged", "moe_gather", "moe_gmm")
@@ -215,6 +218,17 @@ SSM_FWD = (2, 1024)        # Model.forward batch x tokens (phase 6a)
 SSD_MAIN = dict(b=BATCH, s=PROMPT, nh=32, hp=64, n=128)
 SSD_LONG = dict(b=2, s=2048, nh=32, hp=64, n=128)
 SSD_ZAMBA = dict(b=BATCH, s=PROMPT, nh=64, hp=64, n=64)
+# ssd_scan's phase 2 cases from a random state past one chunk: a ragged
+# 1000-token forward (the long shape is SSD_LONG)
+SSD_RAGGED = dict(b=2, s=1000, nh=32, hp=64, n=128)
+# the chunk ssd_work reckons the bound's FLOPs at: a constant of the
+# function's yardstick, not the kernels' chunk (ssd_scan.kernel_chunk)
+SSD_BOUND_CHUNK = 64
+# TF32 tensor-core passes csrc/ssd_scan.cu runs for C B^T, the masked
+# product M xw, and C h^T and the state update, by the itemsize of x, B
+# and C (3xTF32 for an fp32 operand; bf16 B and C go in unsplit): the
+# weights of ssd_work's second bound, at the TF32 rate
+SSD_TC_PASSES = {2: (1, 3, 2), 4: (3, 3, 3)}
 
 # the attention pair (phase 7): llama2-7b at its published widths (32 heads
 # of 128), depth cut to 2 layers (only layer 0's attention is read); a
@@ -848,16 +862,25 @@ def mla_phase(g, dev) -> dict:
                           bound_by=lb_by))
 
 
-def ssd_case(g, dev, dtype, *, b, s, nh, hp, n, state=True):
+def ssd_case(g, dev, dtype, *, b, s, nh, hp, n, state=True, slow=False):
     """ssd_scan operands as mamba2_block hands them: xh, B and C are views
     of one conv output (batch and sequence strides over di + 2N channels),
-    dt post-softplus in float32, h0 random or None."""
+    dt post-softplus in float32, h0 random or None. slow: dt ~ U(0.001,
+    0.05) and A ~ -U(0.1, 1), so a 64-row chunk keeps exp(l_end) >= ~0.04
+    (0.4 typical) of its start state and the state carried across chunks
+    shows in y and h_fin; else dt = softplus(N(0, 1) - 1) and A =
+    -exp(0.3 N(0, 1)), which keep ~1e-5 of it at most."""
     import torch
     di = nh * hp
     conv = torch.randn((b, s, di + 2 * n), generator=g, device=dev).to(dtype)
-    dt = torch.nn.functional.softplus(
-        torch.randn((b, s, nh), generator=g, device=dev) - 1.0)
-    a_log = 0.3 * torch.randn((nh,), generator=g, device=dev)
+    if slow:
+        dt = 0.001 + 0.049 * torch.rand((b, s, nh), generator=g, device=dev)
+        a_log = torch.log(0.1 + 0.9 * torch.rand((nh,), generator=g,
+                                                 device=dev))
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, s, nh), generator=g, device=dev) - 1.0)
+        a_log = 0.3 * torch.randn((nh,), generator=g, device=dev)
     d_skip = torch.randn((nh,), generator=g, device=dev)
     h0 = torch.randn((b, nh, hp, n), generator=g, device=dev) \
         if state else None
@@ -865,19 +888,23 @@ def ssd_case(g, dev, dtype, *, b, s, nh, hp, n, state=True):
             conv[..., di + n:], a_log, d_skip, h0]
 
 
-def ssd_work(b, s, nh, hp, n, itemsize, state=True) -> tuple[float, float]:
+def ssd_work(b, s, nh, hp, n, itemsize, state=True,
+             passes=(1, 1, 1)) -> tuple[float, float]:
     """(FLOPs, bytes) of one ssd_scan call. FLOPs of the chunked algorithm
-    at the kernel's chunk, only the causal entries: per chunk of L rows,
+    at SSD_BOUND_CHUNK, only the causal entries: per chunk of L rows,
     C B^T once per batch (L(L+1)/2 x 2N), and per head the intra-chunk
-    product (L(L+1)/2 x 2hp), C h^T and the state update (2 L hp N each).
-    Bytes: each input read once (B and C per batch, not per head), each
-    output written once."""
-    from repro_torch.kernels.ssd_scan import KERNEL_CHUNK
+    product (L(L+1)/2 x 2hp), C h^T and the state update (2 L hp N each),
+    each weighted by its entry of `passes` (SSD_TC_PASSES: the tensor-core
+    passes the kernels run for it; 1: the function's own FLOPs). Bytes:
+    each input read once (B and C per batch, not per head), each output
+    written once."""
+    w_cb, w_intra, w_state = passes
     flops = 0.0
-    for c0 in range(0, s, KERNEL_CHUNK):
-        L = min(KERNEL_CHUNK, s - c0)
+    for c0 in range(0, s, SSD_BOUND_CHUNK):
+        L = min(SSD_BOUND_CHUNK, s - c0)
         tri = L * (L + 1) / 2
-        flops += b * tri * 2 * n + b * nh * (tri * 2 * hp + 4 * L * hp * n)
+        flops += w_cb * b * tri * 2 * n + b * nh * (
+            w_intra * tri * 2 * hp + w_state * 4 * L * hp * n)
     state_bytes = b * nh * hp * n * 4
     nbytes = (b * s * nh * hp * itemsize + b * s * nh * 4          # x, dt
               + 2 * b * s * n * itemsize + 2 * nh * 4              # B, C, A, D
@@ -886,11 +913,57 @@ def ssd_work(b, s, nh, hp, n, itemsize, state=True) -> tuple[float, float]:
     return flops, nbytes
 
 
+def ssd_passes_check(g, dev, tag, shape) -> float:
+    """Each of ssd_scan's three CUDA passes against its plain pass on the
+    same inputs (bf16 x, B, C and a random float32 state; each pass is fed
+    the plain result of the pass before), at the kernels' own chunk.
+    Returns the largest max|err|."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as S
+    xh, dt, bm, cm, a_log, d_skip, h0 = ssd_case(g, dev, torch.bfloat16,
+                                                 **shape)
+    chunk = S.kernel_chunk(shape["s"], shape["n"])
+    nc = -(-shape["s"] // chunk)
+    n = shape["n"]
+    _, ws, lend = S.workspace(shape["b"], nc, shape["nh"], shape["hp"], n,
+                              dev)
+    S.chunk_states_cuda(xh, dt, bm, a_log, chunk, ws, lend)
+    states, lend_ref = S.ssd_chunk_states_plain(xh, dt, bm, a_log, chunk)
+    err = max(check(f"ssd_scan {tag} chunk_states", ws[..., :n], states,
+                    torch.float32),
+              check(f"ssd_scan {tag} chunk l_end", lend, lend_ref,
+                    torch.float32))
+    ws[..., :n].copy_(states)
+    lend.copy_(lend_ref)
+    S.state_pass_cuda(h0, ws, lend, shape["s"], n, chunk)
+    starts = S.ssd_state_pass_plain(states, lend_ref, h0)
+    err = max(err, check(f"ssd_scan {tag} state_pass", ws[..., :n], starts,
+                         torch.float32))
+    ws[..., :n].copy_(starts)
+    hg = S.heads_per_block(shape["b"], nc, shape["nh"], shape["hp"],
+                           torch.cuda.get_device_properties(dev)
+                           .multi_processor_count)
+    y, h = S.chunk_out_cuda(xh, dt, bm, cm, a_log, d_skip, h0, ws, chunk, hg)
+    y_ref, h_ref = S.ssd_chunk_out_plain(xh, dt, bm, cm, a_log, d_skip,
+                                         chunk, h0, starts)
+    return max(err, check(f"ssd_scan {tag} chunk_out y", y, y_ref,
+                          torch.float32),
+               check(f"ssd_scan {tag} chunk_out h_fin", h, h_ref,
+                     torch.float32))
+
+
 def ssd_phase(g, dev) -> dict:
-    """ssd_scan against its plain version (the config's chunk of 256),
-    then timed at mamba2-370m's prefill shape in the main path's types
-    (bf16 x, B, C; a float32 zero state from the fresh cache), and at a
-    long forward and zamba2-1.2b's widths."""
+    """ssd_scan against its plain version (the config's chunk of 256) at
+    mamba2-370m's prefill shape, lengths off the kernels' chunk, 2 x 2048
+    from zero and from a random state, and zamba2-1.2b's widths; each of
+    its three passes against its plain pass at 2 x 2048 and at a ragged
+    1000 tokens from a random state; the 2 x 2048 and ragged 1000 calls
+    and passes again with a slow decay (ssd_case's `slow`), where the
+    state carried across chunks is not lost in the tolerance; then timed at the prefill shape in
+    the main path's types (bf16 x, B, C; a float32 zero state from the
+    fresh cache), and at the long forward and zamba2-1.2b's widths, back
+    to back and as calls replayed from one CUDA graph."""
     import torch
 
     from repro_torch.kernels import ops
@@ -906,7 +979,16 @@ def ssd_phase(g, dev) -> dict:
               dict(b=3, s=100, nh=8, hp=64, n=128)),
              ("long forward 2 x 2048", torch.float32,
               dict(SSD_LONG, state=False)),
-             ("zamba2 widths", torch.float32, SSD_ZAMBA)]
+             ("2 x 2048, random h0", torch.float32, SSD_LONG),
+             ("2 x 2048, random h0, bf16 inputs", torch.bfloat16, SSD_LONG),
+             ("ragged 1000, random h0", torch.float32, SSD_RAGGED),
+             ("zamba2 widths", torch.float32, SSD_ZAMBA),
+             ("2 x 2048, random h0, slow decay", torch.float32,
+              dict(SSD_LONG, slow=True)),
+             ("2 x 2048, random h0, slow decay, bf16 inputs", torch.bfloat16,
+              dict(SSD_LONG, slow=True)),
+             ("ragged 1000, random h0, slow decay", torch.float32,
+              dict(SSD_RAGGED, slow=True))]
     for tag, dt, shape in cases:
         args = ssd_case(g, dev, dt, **shape)
         y, h = ops.ssd_scan(*args[:6], chunk=256, h0=args[6])
@@ -914,38 +996,56 @@ def ssd_phase(g, dev) -> dict:
         # fp32 arithmetic on the same values in both: the fp32 tolerance
         err = max(err, check(f"ssd_scan {tag} y", y, y_ref, torch.float32),
                   check(f"ssd_scan {tag} h_fin", h, h_ref, torch.float32))
+    for tag, shape in (("2 x 2048", SSD_LONG), ("ragged 1000", SSD_RAGGED),
+                       ("2 x 2048 slow decay", dict(SSD_LONG, slow=True)),
+                       ("ragged 1000 slow decay",
+                        dict(SSD_RAGGED, slow=True))):
+        err = max(err, ssd_passes_check(g, dev, tag, shape))
+
+    def scan(*a):
+        return ops.ssd_scan(*a[:6], chunk=256, h0=a[6])
 
     def timed(shape):
-        """Kernel and plain ms at `shape`, bf16 inputs and a float32 zero
-        state (the prefill from a fresh cache), and the bound."""
+        """Kernel (back to back and in a CUDA graph) and plain ms at
+        `shape`, bf16 inputs and a float32 zero state (the prefill from a
+        fresh cache), and the bound."""
         def one_set():
             args = ssd_case(g, dev, torch.bfloat16, **shape)
             args[6].zero_()
             return args
 
         flops, nbytes = ssd_work(**shape, itemsize=2)
+        tc_flops, _ = ssd_work(**shape, itemsize=2,
+                               passes=SSD_TC_PASSES[2])
         sets = [one_set() for _ in range(n_sets(nbytes))]
-        ms = time_ms(lambda *a: ops.ssd_scan(*a[:6], chunk=256, h0=a[6]),
-                     sets)
+        ms, gms = time_ms(scan, sets), graph_ms(scan, sets)
         plain_ms = time_ms(lambda *a: ssd_scan_plain(*a[:6], 256, h0=a[6]),
                            sets)
-        return ms, plain_ms, bound(flops, nbytes, "float32")
+        return (ms, gms, plain_ms, bound(flops, nbytes, "float32"),
+                bound(tc_flops, nbytes, "tf32"))
 
-    ms, plain_ms, (b_ms, b_by) = timed(SSD_MAIN)
+    def line(tag, shape, ms, gms, plain_ms, b, tc):
+        print(f"[time] ssd_scan {tag} {shape}: {ms:.4f} ms ({gms:.4f} ms in "
+              f"a CUDA graph; bound {b[0]:.4f} ms, {b[1]}; at the TF32 "
+              f"passes run {tc[0]:.4f} ms, {tc[1]}), plain {plain_ms:.4f} ms")
+
+    ms, gms, plain_ms, (b_ms, b_by), tc_main = timed(SSD_MAIN)
+    line("main", SSD_MAIN, ms, gms, plain_ms, (b_ms, b_by), tc_main)
     extra = {}
     for tag, shape in (("long", SSD_LONG), ("zamba2", SSD_ZAMBA)):
-        xms, xplain, (xb, xby) = timed(shape)
-        print(f"[time] ssd_scan {tag} {shape}: {xms:.4f} ms (bound "
-              f"{xb:.4f} ms, {xby}), plain {xplain:.4f} ms")
+        xms, xgms, xplain, (xb, xby), tc = timed(shape)
+        line(tag, shape, xms, xgms, xplain, (xb, xby), tc)
         extra[tag] = dict(shape=" ".join(f"{k}={v}" for k, v in
                                          shape.items()),
-                          ms=xms, plain_ms=xplain, bound_ms=xb, bound_by=xby)
+                          ms=xms, graph_ms=xgms, plain_ms=xplain,
+                          bound_ms=xb, bound_by=xby, tc_bound_ms=tc[0])
     return dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:61", launches=None,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        max_abs_err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, tc_bound_ms=tc_main[0],
+        library_ms=None,
         library_note="no single PyTorch call computes an SSD chunk scan",
         dtype="bfloat16 x/B/C, float32 dt/state/y",
         shape=" ".join(f"{k}={v}" for k, v in SSD_MAIN.items()),

@@ -38,8 +38,9 @@ _L = ctypes.c_longlong
 # scale as c_float, element strides as c_longlong. A source may export more
 # than one entry: moe_gmm.cu holds both grouped expert FFNs of the Pallas
 # file it ports, over shared cores, so they build in one nvcc process; the
-# `_tc_launch` entries are the tensor-core routes of their kernels, and
-# `flash_decode_split_launch` flash_decode's split-KV route.
+# `_tc_launch` entries are the tensor-core routes of their kernels,
+# `flash_decode_split_launch` flash_decode's split-KV route, and the three
+# `ssd_` entries the passes of the SSD chunk scan.
 SIGNATURES = {
     "swiglu_ffn_launch": ("swiglu", [_P] * 6 + [_I] * 5 + [_P]),
     "swiglu_ffn_tc_launch": ("swiglu", [_P] * 6 + [_I] * 4 + [_P]),
@@ -53,8 +54,11 @@ SIGNATURES = {
                                  [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
     "mla_paged_decode_launch": ("mla_paged",
                                 [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
-    "ssd_scan_launch": ("ssd_scan",
-                        [_P] * 9 + [_I] * 5 + [_L] * 8 + [_I, _P]),
+    "ssd_chunk_states_launch": ("ssd_scan", [_P] * 6 + [_I] * 5 + [_L] * 6
+                                + [_I] * 2 + [_P]),
+    "ssd_state_pass_launch": ("ssd_scan", [_P] * 3 + [_I] * 6 + [_P]),
+    "ssd_chunk_out_launch": ("ssd_scan", [_P] * 10 + [_I] * 5 + [_L] * 8
+                             + [_I] * 3 + [_P]),
     "router_score_launch": ("router_score", [_P] * 4 + [_I] * 5 + [_P]),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 4 + [_I] * 4 + [_F, _I, _I, _P]),

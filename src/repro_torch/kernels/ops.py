@@ -198,8 +198,9 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     Unlike the JAX wrapper, which hands every call with a state to the
     plain scan, the CUDA kernel takes ``h0``, so a prefill from a fresh
     cache runs it. The plain version scans in chunks of ``chunk`` rows;
-    the CUDA kernel in chunks of its own (``ssd_scan.KERNEL_CHUNK``), the
-    same function up to rounding."""
+    the CUDA kernels in chunks of their own (``ssd_scan.kernel_chunk``),
+    the same function up to rounding. One call is one launch counted,
+    whichever of the kernels' one or three passes it runs."""
     if not _route(xh):
         return ssd_scan_plain(xh, dt, b, c, a_log, d_skip, chunk, h0=h0)
     out = ssd_scan_cuda(xh, dt, b, c, a_log, d_skip, h0=h0)

@@ -411,17 +411,25 @@ def test_cuda_row_matmul_is_width_invariant(dtype, k, n):
             assert torch.equal(y[row:row + 1], matmul(x[row:row + 1], w))
 
 
-def _ssd_case(g, dev, dtype, b, s, nh, hp, n, state):
+def _ssd_case(g, dev, dtype, b, s, nh, hp, n, state, slow=False):
     """ssd_scan operands as the model hands them: xh, B and C are views of
     one conv output (batch and sequence strides over di + 2N channels), dt
-    post-softplus in float32, and h0 random or None."""
+    post-softplus in float32, and h0 random or None. slow: dt ~ U(0.001,
+    0.05) and A ~ -U(0.1, 1), so that a 64-row chunk keeps a visible part
+    (exp(l_end) ~ 0.4) of the state it starts from; the default decay
+    keeps ~1e-5 of it at most, under the tolerance."""
     di = nh * hp
     conv = torch.randn((b, s, di + 2 * n), generator=g, device=dev).to(dtype)
     xh = conv[..., :di].reshape(b, s, nh, hp)
     bm, cm = conv[..., di:di + n], conv[..., di + n:]
-    dt = torch.nn.functional.softplus(
-        torch.randn((b, s, nh), generator=g, device=dev) - 1.0)
-    a_log = 0.3 * torch.randn((nh,), generator=g, device=dev)
+    if slow:
+        dt = 0.001 + 0.049 * torch.rand((b, s, nh), generator=g, device=dev)
+        a_log = torch.log(0.1 + 0.9 * torch.rand((nh,), generator=g,
+                                                 device=dev))
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, s, nh), generator=g, device=dev) - 1.0)
+        a_log = 0.3 * torch.randn((nh,), generator=g, device=dev)
     d_skip = torch.randn((nh,), generator=g, device=dev)
     h0 = torch.randn((b, nh, hp, n), generator=g, device=dev) \
         if state else None
@@ -430,24 +438,35 @@ def _ssd_case(g, dev, dtype, b, s, nh, hp, n, state):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,s,nh,hp,n,state", [
-    (4, 32, 32, 64, 128, False),     # mamba2-370m's prefill, fresh state
-    (4, 32, 32, 64, 128, True),      # the same from a carried state
-    (3, 100, 8, 64, 128, True),      # not a multiple of the kernel chunk
-    (2, 2048, 32, 64, 128, False),   # a long forward
-    (2, 96, 64, 64, 64, True)])      # zamba2-1.2b's widths
-def test_cuda_ssd_scan_matches_plain(dtype, b, s, nh, hp, n, state):
+@pytest.mark.parametrize("b,s,nh,hp,n,state,slow", [
+    (4, 32, 32, 64, 128, False, False),    # mamba2-370m's prefill, fresh
+    (4, 32, 32, 64, 128, True, False),     # the same from a carried state
+    (3, 100, 8, 64, 128, True, False),     # not a multiple of the chunk
+    (2, 2048, 32, 64, 128, False, False),  # a long forward
+    (2, 96, 64, 64, 64, True, False),      # zamba2-1.2b's widths
+    (2, 2048, 32, 64, 128, True, False),   # many chunks from a random state
+    (2, 1000, 32, 64, 128, True, False),   # a ragged multi-chunk length
+    (1, 1024, 64, 64, 64, True, False),    # zamba2's widths, many chunks
+    (2, 1, 32, 64, 128, False, False),     # one row, no state
+    (2, 5, 32, 64, 128, False, False),     # five rows, no state
+    (2, 2048, 32, 64, 128, True, True),    # many chunks, the carry kept
+    (2, 1000, 32, 64, 128, True, True),    # ragged, the carry kept
+    (1, 1024, 64, 64, 64, True, True)])    # zamba2's widths, carry kept
+def test_cuda_ssd_scan_matches_plain(dtype, b, s, nh, hp, n, state, slow):
     """ssd_scan on strided views of one conv output against its plain
     version at the config's chunk of 256: |err| <= 1e-4 max|ref| for y and
     h_fin (fp32 arithmetic on the same values in both types, chunked
-    differently); one launch counted per call."""
+    differently); one launch counted per call, whichever of the kernels'
+    one or three passes it runs. The slow cases decay little over a chunk,
+    so a state lost between chunks would show."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(6)
-    args = _ssd_case(g, dev, getattr(torch, dtype), b, s, nh, hp, n, state)
+    args = _ssd_case(g, dev, getattr(torch, dtype), b, s, nh, hp, n, state,
+                     slow)
     tops.reset_launches()
     y, h = tops.ssd_scan(*args[:6], chunk=256, h0=args[6])
     y_ref, h_ref = ssd_scan_plain(*args[:6], 256, h0=args[6])
@@ -457,6 +476,39 @@ def test_cuda_ssd_scan_matches_plain(dtype, b, s, nh, hp, n, state):
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
         tol = 1e-4 * ref.abs().max().item()
         assert (got - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,nh,hp,n", [
+    (4, 32, 32, 64, 128),            # one chunk: chunk_out alone
+    (2, 1000, 32, 64, 128)])         # three passes over one workspace
+def test_cuda_ssd_scan_graph_replay_is_bitwise(b, s, nh, hp, n):
+    """Two eager calls give the same bits, and so does the call captured
+    in a CUDA graph and replayed: no host synchronisation, no allocation
+    in the kernels, no order that changes from run to run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    args = _ssd_case(g, dev, torch.bfloat16, b, s, nh, hp, n, True)
+
+    def call():
+        return tops.ssd_scan(*args[:6], chunk=256, h0=args[6])
+
+    first, second = call(), call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    for got in (second, captured):
+        assert all(torch.equal(x, r) for x, r in zip(got, first))
 
 
 @pytest.mark.cuda

@@ -27,7 +27,8 @@ from repro.models import build_model as jbuild
 from repro.models import ssm as jssm
 from repro_torch.bridge import params_from_jax_numpy
 from repro_torch.config import override
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels import ssd_scan as tscan
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.launch import serve as tserve
 from repro_torch.models import build_model
@@ -90,6 +91,72 @@ def test_ssd_scan_plain_matches_jax_chunked_from_a_state(s, chunk_t):
     yt, ht = ssd_scan_plain(*map(_t, args[:6]), chunk_t, h0=_t(args[6]))
     _close(yt.numpy(), yj)
     _close(ht.numpy(), hj)
+
+
+@pytest.mark.parametrize("s,chunk_j,chunk_t", [(37, 16, 8), (70, 32, 16)])
+def test_ssd_scan_passes_match_jax_kernel(s, chunk_j, chunk_t):
+    """The CUDA kernels' three passes, composed in their plain mirrors
+    (chunk states, state passing, chunk outputs), from no state over
+    several chunks ending ragged, against the JAX Pallas kernel in
+    interpret mode."""
+    args = _scan_inputs(np.random.default_rng(s + 1), 2, s, 3, 8, 16)
+    yj, hj = jops.ssd_scan(*map(_j, args[:6]), chunk=chunk_j)
+    yt, ht = tscan.ssd_scan_passes_plain(*map(_t, args[:6]), chunk_t)
+    _close(yt.numpy(), yj)
+    _close(ht.numpy(), hj)
+
+
+@pytest.mark.parametrize("s,chunk_t", [(29, 8), (45, 16), (16, 16)])
+def test_ssd_scan_passes_match_jax_chunked_from_a_state(s, chunk_t):
+    """The passes from a nonzero h0 against JAX's ssd_chunked, over
+    several chunks ending ragged and over exactly one."""
+    args = _scan_inputs(np.random.default_rng(s + 2), 2, s, 3, 8, 16,
+                        state=True)
+    yj, hj = jssm.ssd_chunked(*map(_j, args[:6]), 16, h0=_j(args[6]))
+    yt, ht = tscan.ssd_scan_passes_plain(*map(_t, args[:6]), chunk_t,
+                                         h0=_t(args[6]))
+    _close(yt.numpy(), yj)
+    _close(ht.numpy(), hj)
+
+
+def test_ssd_state_pass_plain_chains_chunk_states():
+    """Pass 2 alone: each start state is the last one decayed by its
+    chunk's exp(l_end) plus that chunk's own state."""
+    rng = np.random.default_rng(8)
+    states = torch.from_numpy(rng.standard_normal((2, 3, 2, 4, 5))
+                              .astype(np.float32))
+    lend = torch.from_numpy(-rng.uniform(0, 3, (2, 3, 2)).astype(np.float32))
+    h0 = torch.from_numpy(rng.standard_normal((2, 2, 4, 5))
+                          .astype(np.float32))
+    starts = tscan.ssd_state_pass_plain(states, lend, h0)
+    h = h0
+    for i in range(3):
+        h = h * torch.exp(lend[:, i])[..., None, None] + states[:, i]
+        torch.testing.assert_close(starts[:, i], h, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_ssd_kernel_plan_fits_the_archs(arch):
+    """The CUDA kernels' plan at both archs' full widths: a prefill of 32
+    tokens is one chunk of 32 (one launch), a long forward chunks of 64,
+    each within a block's shared memory; heads a block divide nh and leave
+    at least three blocks an SM of an H100 (132) where there are that many
+    (head, chunk) pairs."""
+    cfg = get_config(arch)
+    n, hp = cfg.ssm.state_size, cfg.ssm.head_dim
+    nh = tssm.num_ssm_heads(cfg)
+    assert tscan.kernel_chunk(32, n) == tscan.SHORT_CHUNK
+    assert tscan.kernel_chunk(2048, n) == tscan.KERNEL_CHUNK
+    for seq in (1, 32, 2048):
+        chunk = tscan.kernel_chunk(seq, n)
+        assert tscan.smem_bytes(n, chunk, 4) <= tscan.MAX_SMEM_BYTES
+        nc = -(-seq // chunk)
+        hg = tscan.heads_per_block(4, nc, nh, hp, 132)
+        assert nh % hg == 0 and hg <= tscan.MAX_HEADS_PER_BLOCK
+        assert hg == 1 or 4 * nc * nh // hg >= 3 * 132
+    assert tscan.heads_per_block(2, 32, 32, 64, 132) == 4
+    assert tscan.smem_bytes(512, tscan.kernel_chunk(4, 512)) > \
+        tscan.MAX_SMEM_BYTES
 
 
 def test_ssd_step_matches_jax():

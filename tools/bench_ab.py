@@ -1,7 +1,7 @@
 """Time one family of the port's kernels for one or more checkouts of this
 repository on one GPU, in one call: ``flash`` (``flash_attention``),
-``ffn`` (``swiglu_ffn`` and ``moe_gmm``) or ``decode`` (``flash_decode``
-and ``paged_attn_decode``).
+``ffn`` (``swiglu_ffn`` and ``moe_gmm``), ``decode`` (``flash_decode``
+and ``paged_attn_decode``) or ``ssd`` (``ssd_scan``).
 
 Each ROOT is a checkout (its ``src/`` holds ``repro_torch`` and it has a
 ``chip_smoke.py`` with ``time_ms``, ``graph_ms``, ``bound`` and
@@ -31,11 +31,20 @@ call or chain of the same function:
   With ``--core L:S ...`` the roots are copies of the first ROOT under
   ``build/bench_ab/`` whose split-KV core (``csrc/decode_split.cuh``)
   takes chunks of L keys and rings of S tiles instead of 256 and 3.
+- ``ssd``: ``ssd_scan`` at chip_smoke's SSD_MAIN (mamba2-370m's 4 x 32
+  prefill), SSD_ZAMBA (zamba2-1.2b's) and SSD_LONG (2 x 2048), bf16 x, B
+  and C from a float32 zero state as phase 2 times it, back to back and in
+  a CUDA graph, beside the plain version and the bound (and the bound at
+  the TF32 rate of the tensor-core passes the kernels run), after one call
+  held against the plain version (max|err| / max|ref| of y and h_fin); one
+  JSON line a root, and with ``--profile`` a second with each of the
+  call's CUDA kernels' device time.
 
     python3 tools/bench_ab.py flash build/parent . . build/parent
     python3 tools/bench_ab.py ffn build/variant . . build/variant
     python3 tools/bench_ab.py decode --profile build/parent . . build/parent
     python3 tools/bench_ab.py decode --core 128:3 256:3 512:3 256:2 256:4
+    python3 tools/bench_ab.py ssd --profile build/parent . . build/parent
 """
 from __future__ import annotations
 
@@ -58,6 +67,27 @@ bf = torch.bfloat16
 root = sys.argv[1]
 g = torch.Generator(device=dev)
 g.manual_seed(0)
+
+
+# device time of each CUDA kernel that fn launches, in ms per call
+# (torch.profiler's CUDA activity over `calls` calls after 3 warm ones),
+# keyed by the kernel's name cut to 60 characters
+def kernel_ms(fn, sets, calls=20):
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(3):
+        fn(*sets[i % len(sets)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        t_us = getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+        if t_us > 0:
+            per[e.key[:60]] = round(t_us / calls / 1e3, 5)
+    return per
 """
 
 FLASH = r"""
@@ -199,30 +229,56 @@ for name, fns, sets, b_ms in data:
     out[name] = dict(rec, bound_ms=b_ms)
 print(json.dumps(out), flush=True)
 if "--profile" in sys.argv[2:]:
-    # device time of each kernel a call launches (torch.profiler's CUDA
-    # activity), per call, over 20 calls
-    from torch.profiler import ProfilerActivity, profile
     prof_out = {"root": root}
     for name, fns, sets, b_ms in data:
         for what, fn in fns.items():
-            for i in range(3):
-                fn(*sets[i % len(sets)])
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for i in range(20):
-                    fn(*sets[i % len(sets)])
-                torch.cuda.synchronize()
-            per = {}
-            for e in prof.key_averages():
-                t_us = getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-                if t_us > 0:
-                    per[e.key[:60]] = round(t_us / 20 / 1e3, 5)
-            prof_out[f"{name} {what}"] = per
+            prof_out[f"{name} {what}"] = kernel_ms(fn, sets)
     print(json.dumps(prof_out), flush=True)
 """
 
-BENCHES = {"flash": FLASH, "ffn": FFN, "decode": DECODE}
+SSD = r"""
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
+
+
+def scan(*a):
+    return ops.ssd_scan(*a[:6], chunk=256, h0=a[6])
+
+
+def plain(*a):
+    return ssd_scan_plain(*a[:6], 256, h0=a[6])
+
+
+def one_set(shape):
+    args = cs.ssd_case(g, dev, bf, **shape)
+    args[6].zero_()
+    return args
+
+
+out = {"root": root}
+data = []
+for name in ("SSD_MAIN", "SSD_ZAMBA", "SSD_LONG"):
+    shape = getattr(cs, name)
+    flops, nbytes = cs.ssd_work(**shape, itemsize=2)
+    tc_flops, _ = cs.ssd_work(**shape, itemsize=2,
+                              passes=cs.SSD_TC_PASSES[2])
+    sets = [one_set(shape) for _ in range(cs.n_sets(nbytes))]
+    got, ref = scan(*sets[0]), plain(*sets[0])
+    err = max(((x - r).abs().max() / r.abs().max()).item()
+              for x, r in zip(got, ref))
+    out[name] = dict(ms=cs.time_ms(scan, sets),
+                     graph_ms=cs.graph_ms(scan, sets),
+                     plain_ms=cs.time_ms(plain, sets),
+                     bound_ms=cs.bound(flops, nbytes, "float32")[0],
+                     tc_bound_ms=cs.bound(tc_flops, nbytes, "tf32")[0],
+                     rel_err=err)
+    data.append((name, sets))
+print(json.dumps(out), flush=True)
+if "--profile" in sys.argv[2:]:
+    print(json.dumps(dict({"root": root}, **{
+        name: kernel_ms(scan, sets) for name, sets in data})), flush=True)
+"""
+
+BENCHES = {"flash": FLASH, "ffn": FFN, "decode": DECODE, "ssd": SSD}
 
 CORE = "src/repro_torch/kernels/csrc/decode_split.cuh"
 COMMON = "src/repro_torch/kernels/common.py"
@@ -258,15 +314,17 @@ def main(argv: list[str]) -> int:
     ap.add_argument("bench", choices=sorted(BENCHES))
     ap.add_argument("roots", nargs="*", default=["."])
     ap.add_argument("--profile", action="store_true",
-                    help="decode: also print each kernel's device time per "
-                         "call (torch.profiler) for every root")
+                    help="decode, ssd: also print each kernel's device time "
+                         "per call (torch.profiler) for every root")
     ap.add_argument("--core", nargs="+", metavar="L:S",
                     help="decode: time copies of the first root whose core "
                          "takes chunks of L keys (a multiple of 64) and "
                          "rings of S tiles (2 or more)")
     args = ap.parse_intermixed_args(argv)
-    if (args.profile or args.core) and args.bench != "decode":
-        ap.error("--profile and --core belong to the decode bench")
+    if args.profile and args.bench not in ("decode", "ssd"):
+        ap.error("--profile belongs to the decode and ssd benches")
+    if args.core and args.bench != "decode":
+        ap.error("--core belongs to the decode bench")
     roots = args.roots
     if args.core:
         roots = [core_copy(args.roots[0], *map(int, v.split(":")))
