@@ -9,10 +9,11 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      the ten CUDA kernels built from the nine sources in
      ``src/repro_torch/kernels/csrc`` with nvcc, one process per source,
      all started together; ptxas's registers and spills, and for each
-     instantiation of flash_attention's two kernels and of the tensor-core
+     instantiation of flash_attention's two kernels, of the tensor-core
      FFN core (ffn_tc.cuh, in swiglu, moe_gmm and moe_gather, by row rule)
-     a ``[tensor cores]`` line with its registers, spills and the count of
-     HGMMA (wgmma)
+     and of mla_paged_decode's kernels (the tensor-core split kernel of
+     mla_tc.cuh, its merge, the SIMT kernel) a ``[tensor cores]`` line
+     with its registers, spills and the count of HGMMA (wgmma)
      instructions in the library's SASS (cuobjdump): a tensor-core
      instantiation with no HGMMA, or with spills, fails the run;
   2. each kernel against its plain PyTorch version on the card at the shapes
@@ -25,7 +26,11 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      over views of several 256-key chunks: pos at and around the chunk
      edges, a window that kills the leading chunks, granite's 48 query
      heads per kv head of 128, hd 256; both kernels with rows at pos -1,
-     every key masked: the view's mean), then timed with CUDA events
+     every key masked: the view's mean; mla_paged_decode with each call
+     checked to run the route mla_route names, bfloat16 at r 512 / dr 64
+     on the tensor cores, 12 heads in a padded M tile and views of several
+     1024-key chunks with pos at and around the chunk edges and -1), then
+     timed with CUDA events
      in bfloat16 beside its plain version, a PyTorch yardstick (library_ms,
      null where no one PyTorch call computes the function) and its bound
      on the card; moe_gmm_ragged and moe_gather also at deepseek-v2's
@@ -101,9 +106,10 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      plain version and decode_attention, both calls on the split-KV
      core (flash_decode.route); tolerances as in phase 2.
 The ``[routes]`` lines of phases 3a, 3b, 4, 5 (5a, path A, 5b, 5c) and 6
-count which kernel each launch of the four FFN kernels ran: every
-bfloat16 launch on the tensor cores, every float32 one on the SIMT core
-(phase 7 checks half and half), or the run fails.
+count which kernel each launch of the four FFN kernels and of
+mla_paged_decode ran: every bfloat16 launch on the tensor cores, every
+float32 one on the SIMT kernel (phase 7 checks half and half), or the run
+fails.
 Phase 2 checks swiglu_ffn at T 512 in float32 and bfloat16 and, in
 bfloat16, at T 1, 4, 100 and 512 at qwen1.5-0.5b's and zamba2-1.2b's widths
 (swiglu and geglu); it times it at T 512 (also the SIMT kernel on the same
@@ -122,8 +128,11 @@ one CUDA graph); moe_gmm at C = 8, 1,
 8, where it is timed, beside the SIMT kernel in bfloat16 and float32; in
 bfloat16 also at C 1, 8, 70 and 130 on 4 of those experts), and
 router_score at d 1024 / N_r 5 and d 4096 /
-N_r 5 and 13 for T of 4, 128, 512 and 100 (timed at T 512, d 1024, N_r
-5), each in float32 and bfloat16 with the tolerances above;
+N_r 5 and 13 for T of 1, 4, 128, 512 and 100 (timed at T 512, d 1024,
+N_r 5, also in a CUDA graph), each in float32 and bfloat16 with the
+tolerances above; mla_paged_decode timed at MLA_MAIN and
+MLA_LONG back to back and in a CUDA graph, with each CUDA kernel's device
+time (torch.profiler: the split and merge kernels apart);
 flash_attention at D 16, 64, 128 and 256 with S and T off the tiles, causal
 S > T, a non-causal ragged T and the static main path's shape, and in
 bfloat16 (the tensor-core route) at D 64, 128 and 256 with S and T off its
@@ -160,8 +169,11 @@ ROOT = Path(__file__).resolve().parent
 # fp32 FMA outside them, and HBM3 bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
-# the kernels of the GLU-FFN cores (ffn_tc.cuh for bf16, ffn_core.cuh)
-FFN_KERNELS = ("swiglu_ffn", "moe_gmm_ragged", "moe_gather", "moe_gmm")
+# the kernels with a tensor-core route for bfloat16 and a SIMT one for
+# float32, whose [routes] lines count both: the GLU-FFN cores (ffn_tc.cuh,
+# ffn_core.cuh) and mla_paged_decode (mla_tc.cuh, mla_paged.cu)
+ROUTED_KERNELS = ("swiglu_ffn", "moe_gmm_ragged", "moe_gather", "moe_gmm",
+                  "mla_paged_decode")
 
 ARCH = "qwen1.5-0.5b"
 CMOE = "S3A3E8"
@@ -775,12 +787,22 @@ def mla_case(g, dev, dtype, *, rows, heads, r, dr, bs, depth, share=False,
 
 
 def mla_phase(g, dev) -> dict:
-    """mla_paged_decode against its plain version, then timed at the
-    engine's decode shape and at a long context."""
+    """mla_paged_decode against its plain version, each call checked to
+    run the route mla_route names (bfloat16 at r 512 / dr 64 on the tensor
+    cores, padded M tiles at 12 heads included; float32 and other widths on
+    SIMT), then timed at the engine's decode shape and at a long context,
+    back to back and as calls replayed from one CUDA graph, with the
+    tensor-core route's split and merge kernels apart (torch.profiler)."""
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.paged_attention import mla_paged_decode_plain
+    from repro_torch.kernels.paged_attention import (mla_paged_decode_plain,
+                                                     mla_route)
+
+    def run(qa, qp, cc, cp, table, pos):
+        want = mla_route(qa.dtype, qa.shape[-1], qp.shape[-1])
+        return routed("mla_paged_decode", want, lambda: ops.mla_paged_decode(
+            qa, qp, cc, cp, table=table, pos=pos, scale=MLA_SCALE))
 
     err = 0.0
     # depths 75 and 70 are not multiples of the block sizes 16 and 8
@@ -789,18 +811,39 @@ def mla_phase(g, dev) -> dict:
              dict(rows=5, heads=128, r=512, dr=64, bs=8, depth=70),
              dict(rows=3, heads=12, r=96, dr=16, bs=16, depth=37,
                   share=True, trash_rows=1)]
+    # the tensor-core route's own cases, on a generator of their own (so g's
+    # draws stay as they were): 12 heads in a 64-row M tile, and views of
+    # several 1024-key chunks, pos at and around the chunk edges and -1
+    g_tc = torch.Generator(device=dev)
+    g_tc.manual_seed(27)
+    tc_cases = [
+        dict(rows=4, heads=12, r=512, dr=64, bs=16, depth=75,
+             at=[75, 40, 0, -1], what="12 heads"),
+        dict(rows=8, heads=128, r=512, dr=64, bs=16, depth=2100,
+             at=[2100, 1023, 1024, 1025, 2047, 2048, 5, -1],
+             what="chunk edges")]
     for dt in (torch.float32, torch.bfloat16):
-        for c in cases:
-            qa, qp, cc, cp, table, pos = mla_case(g, dev, dt, **c)
-            got = ops.mla_paged_decode(qa, qp, cc, cp, table=table, pos=pos,
-                                       scale=MLA_SCALE)
+        for c in cases + tc_cases:
+            c = dict(c)
+            tag = c.pop("what", "")
+            qa, qp, cc, cp, table, pos = mla_case(g_tc if tag else g, dev,
+                                                  dt, **c)
+            got = run(qa, qp, cc, cp, table, pos)
             ref = mla_paged_decode_plain(qa, qp, cc, cp, table, pos,
                                          scale=MLA_SCALE)
+            name = (f"mla_paged_decode {tag} H={c['heads']} r={c['r']} "
+                    f"bs={c['bs']} ({mla_route(dt, c['r'], c['dr'])})")
+            if tag:
+                # each row against its own scale (the pos -1 row is the
+                # small mean of its view)
+                for i in range(c["rows"]):
+                    check(f"{name} depth={c['depth']} pos={int(pos[i])}",
+                          got[i], ref[i], dt)
+                continue
             real = c["rows"]
-            tag = f"mla_paged_decode H={c['heads']} r={c['r']} bs={c['bs']}"
-            e = check(tag, got[:real], ref[:real], dt)
+            e = check(name, got[:real], ref[:real], dt)
             if real < got.shape[0]:
-                check(f"{tag} trash rows", got[real:], ref[real:], dt)
+                check(f"{name} trash rows", got[real:], ref[real:], dt)
             if dt == torch.bfloat16:
                 err = max(err, e)
         # a row at pos -1 (every key masked: the mean of its view's latent
@@ -810,19 +853,21 @@ def mla_phase(g, dev) -> dict:
         qa, qp, cc, cp, table, pos = mla_case(
             g_neg, dev, dt, rows=3, heads=128, r=512, dr=64, bs=16, depth=75,
             at=[75, -1, 20])
-        got = ops.mla_paged_decode(qa, qp, cc, cp, table=table, pos=pos,
-                                   scale=MLA_SCALE)
+        got = run(qa, qp, cc, cp, table, pos)
         ref = mla_paged_decode_plain(qa, qp, cc, cp, table, pos,
                                      scale=MLA_SCALE)
         for i in range(3):
             check(f"mla_paged_decode pos={int(pos[i])}", got[i], ref[i], dt)
 
-    def timed(shape):
-        """Kernel and plain ms at `shape` (every row at depth), and the
-        bound from the live latent and rope-key rows, the queries, out,
-        table and pos."""
-        item = 2                                     # bf16 bytes
+    def kernel(qa, qp, cc, cp, t, p):
+        return ops.mla_paged_decode(qa, qp, cc, cp, table=t, pos=p,
+                                    scale=MLA_SCALE)
 
+    def timed(shape):
+        """Kernel ms back to back and in a CUDA graph, plain ms, the bound
+        (from the live latent and rope-key rows, the queries, out, table
+        and pos) at `shape` (every row at depth), and each CUDA kernel's
+        device ms a call."""
         def one_set():
             *ts, pos = mla_case(g, dev, torch.bfloat16, **shape)
             return ts + [pos.fill_(shape["depth"])]
@@ -830,36 +875,77 @@ def mla_phase(g, dev) -> dict:
         sets = [one_set()]
         pool_bytes = sum(t.numel() * t.element_size() for t in sets[0])
         sets += [one_set() for _ in range(n_sets(pool_bytes) - 1)]
-        ms = time_ms(lambda qa, qp, cc, cp, t, p: ops.mla_paged_decode(
-            qa, qp, cc, cp, table=t, pos=p, scale=MLA_SCALE), sets)
-        plain_ms = time_ms(lambda qa, qp, cc, cp, t, p:
-                           mla_paged_decode_plain(qa, qp, cc, cp, t, p,
-                                                  scale=MLA_SCALE), sets)
-        rows, h, r, dr = (shape[k] for k in ("rows", "heads", "r", "dr"))
-        live = shape["depth"] + 1
-        nbytes = (rows * live * (r + dr) * item          # latent, rope key
-                  + rows * h * (2 * r + dr) * item       # q_abs, q_pe, out
-                  + rows * (-(-live // shape["bs"]) + 1) * 4)  # table, pos
-        flops = rows * h * live * (2 * (r + dr) + 2 * r)
-        return ms, plain_ms, bound(flops, nbytes, "bfloat16")
+        flops, nbytes = mla_work(**shape, itemsize=2)
+        return dict(ms=time_ms(kernel, sets), graph_ms=graph_ms(kernel, sets),
+                    plain_ms=time_ms(lambda qa, qp, cc, cp, t, p:
+                                     mla_paged_decode_plain(
+                                         qa, qp, cc, cp, t, p,
+                                         scale=MLA_SCALE), sets),
+                    bound=bound(flops, nbytes, "bfloat16"),
+                    kernels=kernel_ms(kernel, sets))
 
-    ms, plain_ms, (b_ms, b_by) = timed(MLA_MAIN)
-    lms, lplain_ms, (lb_ms, lb_by) = timed(MLA_LONG)
-    print(f"[time] mla_paged_decode long context {MLA_LONG}: {lms:.4f} ms "
-          f"(bound {lb_ms:.4f} ms, {lb_by}), plain {lplain_ms:.4f} ms")
+    main, long = timed(MLA_MAIN), timed(MLA_LONG)
+    for what, shape, t in (("engine decode", MLA_MAIN, main),
+                           ("long context", MLA_LONG, long)):
+        print(f"[time] mla_paged_decode {what} {shape}: {t['ms']:.4f} ms "
+              f"({t['graph_ms']:.4f} ms in a CUDA graph; bound "
+              f"{t['bound'][0]:.4f} ms, {t['bound'][1]}), plain "
+              f"{t['plain_ms']:.4f} ms; device ms a call by kernel "
+              f"{t['kernels']}")
     return dict(
         name="mla_paged_decode", route="cuda",
         source="src/repro_torch/kernels/csrc/mla_paged.cu",
+        core="src/repro_torch/kernels/csrc/mla_tc.cuh",
         replaces="src/repro/kernels/paged_attention.py:192", launches=None,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound"][0], bound_by=main["bound"][1],
+        library_ms=None,
         library_note="no single PyTorch call computes a block-table lookup "
                      "plus absorbed latent attention", dtype="bfloat16",
+        kernel_route="tensor_core",
         shape=" ".join(f"{k}={v}" for k, v in MLA_MAIN.items()),
+        graph_ms=main["graph_ms"], kernels_ms=main["kernels"],
         long_context=dict(shape=" ".join(f"{k}={v}" for k, v in
                                          MLA_LONG.items()),
-                          ms=lms, plain_ms=lplain_ms, bound_ms=lb_ms,
-                          bound_by=lb_by))
+                          ms=long["ms"], graph_ms=long["graph_ms"],
+                          plain_ms=long["plain_ms"],
+                          bound_ms=long["bound"][0],
+                          bound_by=long["bound"][1],
+                          kernels_ms=long["kernels"]))
+
+
+def mla_work(rows, heads, r, dr, bs, depth, itemsize) -> tuple[float, float]:
+    """(FLOPs, bytes) of one mla_paged_decode call with every row at
+    `depth`: the scores (2 (r + dr) a head and key) and the latent-value
+    product (2 r) over the live keys; their latent and rope-key rows, the
+    queries, out, table and pos each moved once."""
+    live = depth + 1
+    nbytes = (rows * live * (r + dr) * itemsize            # latent, rope key
+              + rows * heads * (2 * r + dr) * itemsize     # q_abs, q_pe, out
+              + rows * (-(-live // bs) + 1) * 4)           # table, pos
+    return rows * heads * live * (2 * (r + dr) + 2 * r), nbytes
+
+
+def kernel_ms(fn, inputs: list, calls: int = 20) -> dict:
+    """Device ms per call of each CUDA kernel `fn` launches (torch.profiler's
+    CUDA activity over `calls` calls after 3 warm ones), keyed by the
+    kernel's name cut to 60 characters."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(3):
+        fn(*inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        t_us = getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+        if t_us > 0:
+            per[e.key[:60]] = round(t_us / calls / 1e3, 5)
+    return per
 
 
 def ssd_case(g, dev, dtype, *, b, s, nh, hp, n, state=True, slow=False):
@@ -1284,13 +1370,14 @@ def moe_gmm_phase(g, dev) -> dict:
 def router_score_phase(g, dev) -> dict:
     """router_score against its plain version at qwen1.5-0.5b's converted
     widths (d 1024, N_r 5) and llama2-7b's (d 4096, N_r 5 and 13), at T of
-    4, 128, 512 and 100 (not a multiple of any block), in float32 and
+    1, 4, 128, 512 and 100 (not a multiple of any block), in float32 and
     bfloat16; timed at the converted qwen's calibration batch (T 512, d
-    1024, N_r 5) in bfloat16."""
+    1024, N_r 5) in bfloat16, back to back and as calls replayed from one
+    CUDA graph, beside its plain version and a torch chain."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, router_score
     from repro_torch.kernels.router_score import router_score_plain
 
     def case(t, d, nr, dtype):
@@ -1302,7 +1389,7 @@ def router_score_phase(g, dev) -> dict:
     err = 0.0
     for dt in (torch.float32, torch.bfloat16):
         for d, nr in ((1024, 5), (4096, 5), (4096, 13)):
-            for t in (4, 128, 512, 100):
+            for t in (1, 4, 128, 512, 100):
                 x, wg, wu = case(t, d, nr, dt)
                 e = check(f"router_score T={t} d={d} N_r={nr}",
                           ops.router_score(x, wg, wu),
@@ -1312,18 +1399,29 @@ def router_score_phase(g, dev) -> dict:
     t, d, nr = ROUTER_MAIN
     nbytes = 2 * t * d + 2 * 2 * d * nr + 4 * t * nr
     sets = [case(t, d, nr, torch.bfloat16) for _ in range(n_sets(nbytes))]
-    ms = time_ms(lambda x, wg, wu: ops.router_score(x, wg, wu), sets)
+    def kernel(x, wg, wu):
+        return ops.router_score(x, wg, wu)
+
+    def chain(x, wg, wu):
+        return F.silu((x @ wg).float()) * (x @ wu).float()
+
+    ms, g_ms = time_ms(kernel, sets), graph_ms(kernel, sets)
     plain_ms = time_ms(lambda *a: router_score_plain(*a), sets)
-    lib_ms = time_ms(lambda x, wg, wu: F.silu((x @ wg).float()) *
-                     (x @ wu).float(), sets)
+    lib_ms, lib_g_ms = time_ms(chain, sets), graph_ms(chain, sets)
     b_ms, b_by = bound(4 * t * d * nr, nbytes, "bfloat16")
+    pl = router_score.plan(t, d, nr, 2)
+    print(f"[time] router_score T={t} d={d} N_r={nr} bf16 ({pl}): {ms:.4f} "
+          f"ms ({g_ms:.4f} ms in a CUDA graph; bound {b_ms:.5f} ms, "
+          f"{b_by}), plain {plain_ms:.4f} ms, chain {lib_ms:.4f} ms "
+          f"({lib_g_ms:.4f} in a graph)")
     return dict(
         name="router_score", route="cuda",
         source="src/repro_torch/kernels/csrc/router_score.cu",
         replaces="src/repro/kernels/router_score.py:36", launches=None,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, dtype="bfloat16 x and weights, "
-        "float32 scores", shape=f"T={t} d={d} N_r={nr}")
+        "float32 scores", shape=f"T={t} d={d} N_r={nr}", graph_ms=g_ms,
+        library_graph_ms=lib_g_ms, plan=pl)
 
 
 def attention_work(bh, s, t, d, causal, itemsize) -> tuple[float, float]:
@@ -1352,22 +1450,27 @@ FFN_TC_KERNEL = re.compile(
     r"ffn_tc_tileILi(\d+)ELb([01])ELi(\d+)ELi(\d+)E")
 FFN_TC_RULES = {"0": "capacity", "1": "ragged", "2": "gather"}
 SIMT_KERNEL = re.compile(r"flash_attn_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+# mla_paged_decode's tensor-core split kernel (mla_tc.cuh) and, for the
+# record, its merge and the SIMT kernel by (element type, NC)
+MLA_TC_KERNEL = re.compile(r"mla_tc\w*split_kernel")
+MLA_OTHER_KERNEL = re.compile(
+    r"(mla_tc\w*merge_kernel)|mla_kernelI(f|13__nv_bfloat16)Li(\d+)E")
 # tensor-core instantiations each library must hold: DP 64, 128, 256; for
 # each row rule of the FFN core, BN 64 and 128 of gate/up and of down, and
 # under the capacity rule (swiglu_ffn's and moe_gmm's) gate/up also with
-# two consumer warpgroups
+# two consumer warpgroups; mla_paged_decode's one split kernel
 TC_INSTANCES = {"flash_attention": 3, "swiglu": 6, "moe_gmm": 10,
-                "moe_gather": 4}
+                "moe_gather": 4, "mla_paged": 1}
 
 
 def tensor_core_report() -> None:
     """Phase 1: a [tensor cores] line for each instantiation of the
-    tensor-core kernels (flash_attention's, and the FFN core's in swiglu,
-    moe_gmm and moe_gather) and of flash_attention's SIMT kernel, with its
-    registers
-    and spills (ptxas) and the HGMMA instructions in its SASS (cuobjdump
-    -sass on the library). A tensor-core instantiation with no HGMMA or
-    with spills fails."""
+    tensor-core kernels (flash_attention's, the FFN core's in swiglu,
+    moe_gmm and moe_gather, and mla_paged_decode's split kernel) and of the
+    SIMT kernels beside them in flash_attention and mla_paged, with its
+    registers and spills (ptxas) and the HGMMA instructions in its SASS
+    (cuobjdump -sass on the library). A tensor-core instantiation with no
+    HGMMA or with spills fails."""
     from repro_torch.kernels import build
 
     def label(name):
@@ -1383,6 +1486,14 @@ def tensor_core_report() -> None:
         if m:
             return (f"{'f32' if m[1] == 'f' else 'bf16'} flash_attn_kernel"
                     f"<NJ {m[2]}>"), False
+        if MLA_TC_KERNEL.search(name):
+            return ("bf16 mla_tc split_kernel<64 heads x 64 keys, two "
+                    "warpgroups>"), True
+        m = MLA_OTHER_KERNEL.search(name)
+        if m:
+            return ("bf16 mla_tc merge_kernel" if m[1] else
+                    f"{'f32' if m[2] == 'f' else 'bf16'} SIMT mla_kernel"
+                    f"<NC {m[3]}>"), False
         return None, False
 
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
@@ -1432,19 +1543,20 @@ def tensor_core_report() -> None:
                                  f"in the SASS, want {want}")
 
 
-def ffn_routes(tag: str, want: str) -> dict:
-    """The route counts of the four FFN kernels since the last reset of the
-    launch counts: every launch must have run the `want` kernel
-    ("tensor_core" in a bfloat16 phase, "simt" in a float32 one). Prints
-    and returns those of the kernels that ran."""
+def kernel_routes(tag: str, want: str) -> dict:
+    """The route counts of the four FFN kernels and mla_paged_decode since
+    the last reset of the launch counts: every launch must have run the
+    `want` kernel ("tensor_core" in a bfloat16 phase, "simt" in a float32
+    one). Prints and returns those of the kernels that ran."""
     from repro_torch.kernels import ops
-    routes = {n: dict(ops.ROUTES[n]) for n in FFN_KERNELS if ops.LAUNCHES[n]}
+    routes = {n: dict(ops.ROUTES[n]) for n in ROUTED_KERNELS
+              if ops.LAUNCHES[n]}
     for name, counts in routes.items():
         if counts != {want: ops.LAUNCHES[name]}:
             raise AssertionError(f"{tag}: {name} routes {counts} for "
                                  f"{ops.LAUNCHES[name]} launches, want all "
                                  f"on {want}")
-    print(f"[routes] {tag}: {routes or 'no FFN kernel launch'}")
+    print(f"[routes] {tag}: {routes or 'no routed kernel launch'}")
     return routes
 
 
@@ -1679,7 +1791,7 @@ def f32_agreement():
     if not (torch.isfinite(lk).all() and err <= 1e-3 * scale):
         raise AssertionError("f32 kernel path disagrees with the plain path")
     torch.cuda.synchronize()
-    ffn_routes("phase 3a f32 conversion and kernel path", "simt")
+    kernel_routes("phase 3a f32 conversion and kernel path", "simt")
     return k_model, cparams, calib["tokens"]
 
 
@@ -1829,7 +1941,7 @@ def capacity_path(model, params, tag: str) -> dict:
               f"{'' if roomy else ' masked by keep'}| {err:.3e} (tol "
               f"{tol * scale:.3e})")
     print(f"[path A {tag}] launches {got}")
-    ffn_routes(f"path A {tag}",
+    kernel_routes(f"path A {tag}",
                "simt" if xf.dtype == torch.float32 else "tensor_core")
     return launches
 
@@ -2086,7 +2198,7 @@ def engine_phase() -> dict:
               f"{rep.prefix_hits}, backends {bc}, audit {rep.pool_audit}, "
               f"parity {res['parity']}")
     print(f"[e2e engine] launches over both runs {launches}")
-    ffn_routes("phase 4 engine bf16", "tensor_core")
+    kernel_routes("phase 4 engine bf16", "tensor_core")
     return launches
 
 
@@ -2158,7 +2270,7 @@ def deepseek_f32_agreement() -> dict:
     print(f"[e2e deepseek f32] kernel vs plain over a prefill chunk and "
           f"{steps} decode steps: max|err| / max|logit| {worst:.3e} (tol "
           f"1e-3); greedy tokens agree {agree}/{rows * (steps + 1)}")
-    ffn_routes("phase 5a deepseek f32 kernel path", "simt")
+    kernel_routes("phase 5a deepseek f32 kernel path", "simt")
     return capacity_path(k_model, params, "f32")
 
 
@@ -2205,7 +2317,7 @@ def deepseek_serving() -> dict:
           f"{GEN - 1} steps), peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, launches "
           f"{launches}")
-    ffn_routes("phase 5b deepseek static bf16", "tensor_core")
+    kernel_routes("phase 5b deepseek static bf16", "tensor_core")
     del res
 
     torch.cuda.synchronize()
@@ -2235,7 +2347,7 @@ def deepseek_serving() -> dict:
           f"{rep.tpot_p95_s * 1e3:.2f} ms, overlap occupancy "
           f"{rep.overlap_occupancy:.3f}, backends {bc}, audit "
           f"{rep.pool_audit}, parity {res['parity']}, launches {launches}")
-    ffn_routes("phase 5c deepseek engine bf16", "tensor_core")
+    kernel_routes("phase 5c deepseek engine bf16", "tensor_core")
     # path A in bfloat16 on the model the engine served
     path_a = capacity_path(res["engine"].model, res["engine"].params, "bf16")
     return launches, path_a
@@ -2330,7 +2442,7 @@ def ssm_f32_agreement(arch: str) -> None:
           f"+ {steps} decode steps {worst:.3e} (tol 1e-3), greedy tokens "
           f"agree {agree}/{BATCH * (steps + 1)}")
     torch.cuda.synchronize()
-    ffn_routes(f"phase 6a {arch} f32 kernel path", "simt")
+    kernel_routes(f"phase 6a {arch} f32 kernel path", "simt")
 
 
 def ssm_serving(arch: str) -> dict:
@@ -2376,7 +2488,7 @@ def ssm_serving(arch: str) -> dict:
           f"{GEN - 1} steps), peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
           f"{launches} (reckoned {want})")
-    ffn_routes(f"phase 6 {arch} static bf16", "tensor_core")
+    kernel_routes(f"phase 6 {arch} static bf16", "tensor_core")
     return launches
 
 
@@ -2615,7 +2727,7 @@ def main(argv=None) -> int:
           f"{serve.PREFILL_REPEATS} warm), decode "
           f"{res['decode_tok_s']:.1f} tok/s ({BATCH} lanes, {GEN - 1} "
           f"steps), launches {launches}")
-    ffn_routes("phase 3b static qwen bf16", "tensor_core")
+    kernel_routes("phase 3b static qwen bf16", "tensor_core")
     for name in ("swiglu_ffn", "moe_gmm_ragged", "moe_gather"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "

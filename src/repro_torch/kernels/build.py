@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("swiglu", "moe_gmm", "moe_gather", "paged_attn", "mla_paged",
            "ssd_scan", "router_score", "flash_attention", "flash_decode")
 HEADERS = ("ffn_core.cuh", "ffn_tc.cuh", "convert.cuh", "wgmma.cuh",
-           "decode_split.cuh")
+           "decode_split.cuh", "mla_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -54,12 +54,14 @@ SIGNATURES = {
                                  [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
     "mla_paged_decode_launch": ("mla_paged",
                                 [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
+    "mla_paged_decode_tc_launch": ("mla_paged",
+                                   [_P] * 9 + [_I] * 7 + [_F, _P]),
     "ssd_chunk_states_launch": ("ssd_scan", [_P] * 6 + [_I] * 5 + [_L] * 6
                                 + [_I] * 2 + [_P]),
     "ssd_state_pass_launch": ("ssd_scan", [_P] * 3 + [_I] * 6 + [_P]),
     "ssd_chunk_out_launch": ("ssd_scan", [_P] * 10 + [_I] * 5 + [_L] * 8
                              + [_I] * 3 + [_P]),
-    "router_score_launch": ("router_score", [_P] * 4 + [_I] * 5 + [_P]),
+    "router_score_launch": ("router_score", [_P] * 4 + [_I] * 8 + [_P]),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 4 + [_I] * 4 + [_F, _I, _I, _P]),
     "flash_attention_tc_launch": ("flash_attention",

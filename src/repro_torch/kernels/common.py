@@ -85,26 +85,29 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 # split-KV decode core takes. A constant, never chosen from a call's rows,
 # block size or table width: a row's arithmetic must not depend on them.
 DECODE_CHUNK = 256
+# csrc/mla_tc.cuh kChunk: the same for mla_paged_decode's tensor-core
+# route, whose partials are latent rows of r 512 (a longer chunk keeps
+# their bytes a fraction of the keys')
+MLA_CHUNK = 1024
 
 
-def decode_chunks(view: int) -> int:
-    """Chunks of DECODE_CHUNK keys that a view of `view` key positions
-    spans: the split-KV core's grid per (row, head); above 1 its merge
-    runs."""
+def decode_chunks(view: int, chunk: int = DECODE_CHUNK) -> int:
+    """Chunks of `chunk` keys that a view of `view` key positions spans: a
+    split decode kernel's grid per (row, head); above 1 its merge runs."""
     if view < 1:
         raise ValueError(f"a decode view holds at least one key; got {view}")
-    return -(-view // DECODE_CHUNK)
+    return -(-view // chunk)
 
 
 def decode_workspace(rows: int, heads: int, hd: int, view: int,
-                     device: torch.device):
-    """(nch, buf, part_acc, part_ml) for a split-KV decode call: one float32
-    allocation `buf` (the caller keeps it alive across the launch) holding
-    the partials (rows, heads, nch, hd) at pointer part_acc and their (m, l)
-    pairs (rows, heads, nch, 2) at pointer part_ml; or None and two NULL
-    pointers where the view fits one chunk (the split kernel then writes
-    the output itself and no merge runs)."""
-    nch = decode_chunks(view)
+                     device: torch.device, chunk: int = DECODE_CHUNK):
+    """(nch, buf, part_acc, part_ml) for a split decode call over chunks of
+    `chunk` keys: one float32 allocation `buf` (the caller keeps it alive
+    across the launch) holding the partials (rows, heads, nch, hd) at
+    pointer part_acc and their (m, l) pairs (rows, heads, nch, 2) at pointer
+    part_ml; or None and two NULL pointers where the view fits one chunk
+    (the split kernel then writes the output itself and no merge runs)."""
+    nch = decode_chunks(view, chunk)
     if nch == 1:
         return nch, None, 0, 0
     n = rows * heads * nch

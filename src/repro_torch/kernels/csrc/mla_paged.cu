@@ -21,7 +21,12 @@
 // bf16 tensor cores, and a SIMT fp32 kernel such as this one is far above
 // both (PERF.md states the numbers).
 //
-// Design (a simple first version, SIMT fp32): one block per (row, group
+// Two routes (paged_attention.mla_route): bfloat16 at deepseek-v2's widths
+// (r 512, dr 64) runs the tensor-core kernel of csrc/mla_tc.cuh, behind
+// mla_paged_decode_tc_launch; float32, and bfloat16 at any other width,
+// the SIMT kernel below, behind mla_paged_decode_launch.
+//
+// Design of the SIMT kernel (fp32 arithmetic): one block per (row, group
 // of G heads), 256 threads, walking the live keys in tiles of KT logical
 // positions. Each tile's latent (KT x r) and rope-key (KT x dr) rows are
 // copied once into shared memory in their own type by cp.async, 16 bytes
@@ -38,9 +43,7 @@
 // Pallas grid walks every block and masks it, and a wholly masked block
 // adds exactly zero there. A row with pos[b] < 0 has every key masked, and
 // the reference's softmax is then the uniform average of the view's latent
-// rows: the kernel counts every view key at the score -1e30 there. wgmma,
-// TMA and splitting long contexts over blocks (the chunks and in-order
-// merge of csrc/decode_split.cuh fit latent rows too) are later work.
+// rows: the kernel counts every view key at the score -1e30 there.
 //
 // The tile is KT logical positions whatever the pool's block size, and a
 // head's sums never depend on the group it shares a block with, so a
@@ -53,6 +56,8 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "mla_tc.cuh"
 
 namespace {
 
@@ -393,4 +398,36 @@ extern "C" int mla_paged_decode_launch(const void* q_abs, const void* q_pe,
                                       out, rows, heads, r, dr, nblk, bs,
                                       scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core route (csrc/mla_tc.cuh): bfloat16 operands, r 512, dr 64,
+// q_abs, q_pe, the pools and part_acc 16-byte aligned. part_acc (rows,
+// heads, nch, r) and part_ml (rows, heads, nch, 2), float32, are the
+// merge's workspace, nch = ceil(nblk * bs / mla_tc::kChunk); both may be
+// null where nch is 1. Other arguments as mla_paged_decode_launch's.
+// Returns the launch error (0 on success).
+extern "C" int mla_paged_decode_tc_launch(
+    const void* q_abs, const void* q_pe, const void* cc_pool,
+    const void* cp_pool, const void* table, const void* pos, void* out,
+    void* part_acc, void* part_ml, int rows, int heads, int r, int dr,
+    int nblk, int bs, int nch, float scale, void* stream) {
+  if (r != mla_tc::kRank || dr != mla_tc::kRope)
+    return (int)cudaErrorInvalidValue;
+  mla_tc::Params P{};
+  P.q_abs = static_cast<const __nv_bfloat16*>(q_abs);
+  P.q_pe = static_cast<const __nv_bfloat16*>(q_pe);
+  P.cc = static_cast<const __nv_bfloat16*>(cc_pool);
+  P.cp = static_cast<const __nv_bfloat16*>(cp_pool);
+  P.table = static_cast<const int*>(table);
+  P.pos = static_cast<const int*>(pos);
+  P.out = static_cast<__nv_bfloat16*>(out);
+  P.part_acc = static_cast<float*>(part_acc);
+  P.part_ml = static_cast<float*>(part_ml);
+  P.rows = rows;
+  P.heads = heads;
+  P.nblk = nblk;
+  P.bs = bs;
+  P.nch = nch;
+  P.scale2 = scale * 1.4426950408889634f;
+  return (int)mla_tc::run(P, static_cast<cudaStream_t>(stream));
 }

@@ -26,6 +26,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import moe_gather as _gather
 from repro_torch.kernels import moe_gmm as _gmm
+from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import swiglu as _swiglu
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
@@ -55,7 +56,8 @@ ROUTES = {"swiglu_ffn": _swiglu.ROUTE_LAUNCHES,
           "moe_gather": _gather.ROUTE_LAUNCHES,
           "moe_gmm": _gmm.ROUTE_LAUNCHES,
           "flash_attention": _fa.ROUTE_LAUNCHES,
-          "flash_decode": _fd.ROUTE_LAUNCHES}
+          "flash_decode": _fd.ROUTE_LAUNCHES,
+          "mla_paged_decode": _paged.MLA_ROUTE_LAUNCHES}
 
 # Row tile of the ragged expert layout ``moe_gmm_ragged`` consumes: one
 # constant per process, never derived from a shape, because the layout block

@@ -20,9 +20,15 @@ mla_paged_decode``: row b scores its absorbed query q_abs (H, r) against
 the lane's latents and its rope query q_pe (H, dr) against the lane's rope
 keys, masks positions past pos[b], and returns the softmax-weighted latent
 o_lat (H, r) in q_abs's dtype (the caller expands it through W_uv); p is
-rounded to the latent's dtype before the value product. The CUDA kernel is
-``csrc/mla_paged.cu``; the plain version is the oracle
-``repro/kernels/ref.py::mla_paged_decode_ref``.
+rounded to the latent's dtype before the value product. The CUDA source is
+``csrc/mla_paged.cu``. It holds two hand-written kernels, and
+``mla_route(dtype, r, dr)`` picks one: "tensor_core" (``csrc/mla_tc.cuh``:
+heads as the wgmma M dimension, one latent tile feeding both products,
+fixed key chunks of ``common.MLA_CHUNK`` with an in-order merge) for
+bfloat16 at deepseek-v2's widths, r 512 and dr 64; "simt" (fp32
+arithmetic, one block per row and head group) for float32 and every other
+width. The plain version is the oracle ``repro/kernels/ref.py::
+mla_paged_decode_ref``.
 
 The kernels read keys only up to the row's view (table width x block
 size), so a contiguous cache lane, handed over as a pool of one block of
@@ -30,10 +36,13 @@ the lane's whole length, is read by the same arithmetic as a paged lane.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (aligned16, check_float_operands,
+from repro_torch.kernels.common import (MLA_CHUNK, aligned16,
+                                        check_float_operands,
                                         decode_workspace, raise_on_error,
                                         stream_ptr)
 
@@ -44,6 +53,21 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 # csrc/mla_paged.cu limits: r and dr multiples of 8, at most 1024
 MLA_MAX_RANK = 1024
+# csrc/mla_tc.cuh's widths (kRank, kRope): deepseek-v2's kv_lora_rank and
+# qk_rope_head_dim, the only MLA widths in configs/
+MLA_TC_RANK = 512
+MLA_TC_ROPE = 64
+# launches of each mla_paged_decode route since the last reset
+MLA_ROUTE_LAUNCHES: Counter = Counter()
+
+
+def mla_route(dtype: torch.dtype, r: int, dr: int) -> str:
+    """The CUDA kernel that serves an mla_paged_decode call, by dtype and
+    widths alone (never by rows, heads or depth): "tensor_core" for
+    bfloat16 at r MLA_TC_RANK and dr MLA_TC_ROPE, else "simt"."""
+    if dtype == torch.bfloat16 and r == MLA_TC_RANK and dr == MLA_TC_ROPE:
+        return "tensor_core"
+    return "simt"
 
 
 def paged_attn_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -150,8 +174,8 @@ def mla_paged_decode_cuda(q_abs: torch.Tensor, q_pe: torch.Tensor,
                           cc_pool: torch.Tensor, cp_pool: torch.Tensor,
                           table: torch.Tensor, pos: torch.Tensor, *,
                           scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream. table and pos must be
-    contiguous int32 on the pools' device."""
+    """Launch the kernel that ``mla_route`` names on the current stream.
+    table and pos must be contiguous int32 on the pools' device."""
     dt, dev = check_float_operands(q_abs, q_pe, cc_pool, cp_pool)
     b, h, r = q_abs.shape
     nblocks, bs, r_c = cc_pool.shape
@@ -172,10 +196,27 @@ def mla_paged_decode_cuda(q_abs: torch.Tensor, q_pe: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous int32 {shape} "
                              f"tensor on {dev}; got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
+    # their 16-byte copies need 16-byte aligned bases (a view may start off
+    # that grid)
+    q_abs, q_pe = aligned16(q_abs), aligned16(q_pe)
+    cc_pool, cp_pool = aligned16(cc_pool), aligned16(cp_pool)
+    nblk = table.shape[1]
     out = torch.empty_like(q_abs)
-    err = build.entry("mla_paged_decode_launch")(
-        q_abs.data_ptr(), q_pe.data_ptr(), cc_pool.data_ptr(),
-        cp_pool.data_ptr(), table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, h, r, dr, table.shape[1], bs, float(scale), dt, stream_ptr(dev))
-    raise_on_error(err, "mla_paged_decode")
+    path = mla_route(q_abs.dtype, r, dr)
+    if path == "tensor_core":
+        nch, _work, part_acc, part_ml = decode_workspace(
+            b, h, r, nblk * bs, dev, chunk=MLA_CHUNK)
+        err = build.entry("mla_paged_decode_tc_launch")(
+            q_abs.data_ptr(), q_pe.data_ptr(), cc_pool.data_ptr(),
+            cp_pool.data_ptr(), table.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), part_acc, part_ml, b, h, r, dr, nblk, bs, nch,
+            float(scale), stream_ptr(dev))
+    else:
+        err = build.entry("mla_paged_decode_launch")(
+            q_abs.data_ptr(), q_pe.data_ptr(), cc_pool.data_ptr(),
+            cp_pool.data_ptr(), table.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), b, h, r, dr, nblk, bs, float(scale), dt,
+            stream_ptr(dev))
+    raise_on_error(err, f"mla_paged_decode ({path})")
+    MLA_ROUTE_LAUNCHES[path] += 1
     return out

@@ -6,7 +6,8 @@ the port, against the JAX package on the CPU.
   float32; 5e-2 in bfloat16, where h is rounded from fp32 sums taken in
   another order);
 * ``router_score_plain`` against the JAX ``ops.router_score``, atol = rtol
-  = 2e-5;
+  = 2e-5, and the CUDA kernel's launch plan (``router_score.plan``), host
+  logic held to its constants in ``csrc/router_score.cu``;
 * the capacity machinery: ``assign_positions`` exactly equal (with and
   without priority, tied priorities, sentinel ids), ``dispatch`` and
   ``combine`` within 1e-6 in float32, drops and sentinel rows included
@@ -18,6 +19,10 @@ the port, against the JAX package on the CPU.
 
 Every input is drawn from a seeded numpy generator; weights cross through
 ``bridge.params_from_jax_numpy``."""
+import math
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +39,7 @@ from repro_torch.bridge import params_from_jax_numpy
 from repro_torch.config import override
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import experts as tex
+from repro_torch.kernels import router_score
 from repro_torch.kernels.moe_gmm import moe_gmm_plain
 from repro_torch.kernels.router_score import router_score_plain
 from repro_torch.models import build_model
@@ -78,6 +84,52 @@ def test_router_score_plain_matches_jax(t, d, nr):
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=2e-5,
                                rtol=2e-5)
+
+
+ROUTER_CU = Path(__file__).resolve().parents[1] / \
+    "src/repro_torch/kernels/csrc/router_score.cu"
+
+
+@pytest.mark.parametrize("t,d,nr,itemsize", [
+    (512, 1024, 5, 2), (512, 1024, 5, 4), (1, 1024, 5, 2), (4, 1024, 5, 2),
+    (100, 4096, 5, 2), (128, 4096, 13, 2), (128, 4096, 13, 4),
+    (100, 4096, 5, 4), (8, 32, 16, 4), (65536, 4096, 16, 4)])
+def test_router_score_plan(t, d, nr, itemsize):
+    """router_score's CUDA launch plan, a function of (T, d, N_r, dtype)
+    alone: one row a warp at qwen's calibration batch over 128 blocks, the
+    weights staged whole where they fit the budget (d 1024 x N_r 5: 20 KB
+    in bf16, 40 KB in f32) and in chunks only past it; every row covered
+    and no staged chunk over the budget."""
+    pl = router_score.plan(t, d, nr, itemsize)
+    vec = 16 // itemsize
+    w = router_score.ROUTER_WARPS
+    assert pl["blocks"] * w * pl["rows_per_warp"] >= t
+    assert (pl["blocks"] - 1) * w * pl["rows_per_warp"] < t or \
+        pl["blocks"] == router_score.ROUTER_MAX_BLOCKS
+    assert pl["chunk"] % vec == 0 and pl["chunks"] * pl["chunk"] >= d
+    assert pl["smem"] == pl["chunk"] // vec * 32 * (nr | 1)
+    assert pl["smem"] <= router_score.ROUTER_SMEM
+    whole = 2 * d * (nr | 1) * itemsize <= router_score.ROUTER_SMEM
+    assert (pl["chunks"] == 1) == whole
+    if (t, d, nr) == (512, 1024, 5):
+        assert pl["blocks"] >= 128 and pl["rows_per_warp"] == 1
+        assert pl["smem"] == {2: 20480, 4: 40960}[itemsize]
+
+
+def test_router_score_plan_rejects_and_matches_the_kernel():
+    """d off the 16-byte vectors and N_r past 16 are refused before any
+    launch; the plan's constants are the kernel's."""
+    with pytest.raises(ValueError):
+        router_score.plan(4, 1020, 5, 2)
+    with pytest.raises(ValueError):
+        router_score.plan(4, 1024, 17, 4)
+    text = ROUTER_CU.read_text()
+    for name, want in (("kWarps", router_score.ROUTER_WARPS),
+                       ("kSmemBudget", router_score.ROUTER_SMEM),
+                       ("kMaxCols", router_score.MAX_ROUTER_COLS)):
+        found = re.findall(rf"constexpr int {name} = ([\d *]+);", text)
+        assert len(found) == 1, name
+        assert math.prod(int(f) for f in found[0].split("*")) == want, name
 
 
 def _assignments(case, rng, t=24, k=3, e=5):

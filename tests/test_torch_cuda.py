@@ -128,23 +128,39 @@ def test_cuda_paged_attn_matches_plain(dtype, grp, hd, bs, window):
         assert (got[sl].float() - ref[sl].float()).abs().max().item() <= tol
 
 
+# (depth, pos of each row): the short view of one chunk (row 5 is an
+# all-trash padding row); MLA_LONG's depth over three 1024-key chunks of the
+# tensor-core route, pos at and around the chunk edges and -1
+MLA_VIEWS = {"short": (45, [45, 40, 30, 17, 45, 0]),
+             "chunks": (2048, [2048, 1023, 1024, 1025, 2047, 3, -1])}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("heads,r,dr,bs", [(128, 512, 64, 16), (12, 96, 16, 8),
-                                           (4, 32, 8, 4)])
-def test_cuda_mla_paged_decode_matches_plain(dtype, heads, r, dr, bs):
-    """mla_paged_decode on fragmented tables, with rows sharing a lane, an
-    all-trash padding row, a poisoned trash block and depths that are not
-    a multiple of the block size, against its plain version; one launch
-    counted per call."""
+                                           (4, 32, 8, 4), (12, 512, 64, 16),
+                                           (4, 512, 64, 8)])
+@pytest.mark.parametrize("view", sorted(MLA_VIEWS))
+def test_cuda_mla_paged_decode_matches_plain(dtype, heads, r, dr, bs, view):
+    """mla_paged_decode on fragmented tables, with rows sharing a lane, a
+    poisoned trash block and depths that are not a multiple of the block
+    size, against its plain version, each row within the tolerance of its
+    own scale: one chunk (with an all-trash padding row) and views of
+    several chunks (pos at the chunk edges, a row whose keys fit the first
+    chunk, pos -1). bfloat16 at r 512 / dr 64 runs the tensor cores, with
+    12 and 4 heads padded in the M tile; each call runs one launch of the
+    route mla_route names."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    from repro_torch.kernels.paged_attention import mla_paged_decode_plain
+    from repro_torch.kernels.paged_attention import (MLA_ROUTE_LAUNCHES,
+                                                     mla_paged_decode_plain,
+                                                     mla_route)
     dt = getattr(torch, dtype)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(2)
-    rows, depth = 6, 45
+    depth, at = MLA_VIEWS[view]
+    rows = len(at)
     nblk = -(-(depth + 1) // bs)
     nblocks = rows * nblk + 1
     cc = torch.randn((nblocks, bs, r), generator=g, device=dev)
@@ -153,9 +169,9 @@ def test_cuda_mla_paged_decode_matches_plain(dtype, heads, r, dr, bs):
     table = (torch.randperm(nblocks - 1, generator=g, device=dev) + 1)[
         :rows * nblk].reshape(rows, nblk).to(torch.int32)
     table[1] = table[0]                          # two rows share a lane
-    table[5] = 0                                 # an all-trash padding row
-    pos = torch.tensor([depth, depth - 5, 30, 17, depth, 0],
-                       dtype=torch.int32, device=dev)
+    if view == "short":
+        table[5] = 0                             # an all-trash padding row
+    pos = torch.tensor(at, dtype=torch.int32, device=dev)
     qa = torch.randn((rows, heads, r), generator=g, device=dev)
     qp = torch.randn((rows, heads, dr), generator=g, device=dev)
     qa, qp, cc, cp = qa.to(dt), qp.to(dt), cc.to(dt), cp.to(dt)
@@ -166,18 +182,19 @@ def test_cuda_mla_paged_decode_matches_plain(dtype, heads, r, dr, bs):
     ref = mla_paged_decode_plain(qa, qp, cc, cp, table, pos, scale=scale)
     torch.cuda.synchronize()
     assert tops.LAUNCHES["mla_paged_decode"] == 1
+    assert MLA_ROUTE_LAUNCHES == {mla_route(dt, r, dr): 1}
     assert got.dtype == dt and torch.isfinite(got).all()
-    for sl in (slice(0, 5), slice(5, 6)):
-        tol = (1e-4 if dt == torch.float32 else 2e-2) * \
-            ref[sl].float().abs().max().item()
-        assert (got[sl].float() - ref[sl].float()).abs().max().item() <= tol
+    _close_rows(got, ref, dt)
 
 
 @pytest.mark.cuda
 def test_cuda_mla_rows_are_width_invariant():
     """A row's mla_paged_decode output is bitwise the same alone and inside
-    a call of many rows, and through a paged table or the same lane held
-    as a contiguous cache (a pool of one block per lane)."""
+    a call of many rows (whose head groups differ on the tensor cores),
+    through a paged table or the same lane held as a contiguous cache (a
+    pool of one block per lane), and through a table wide enough that its
+    view spans two chunks (the merge runs) where the contiguous one spans
+    one."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -207,6 +224,23 @@ def test_cuda_mla_rows_are_width_invariant():
     contiguous = tops.mla_paged_decode(qa, qp, lanes_c, lanes_p,
                                        table=lane_table, pos=pos, scale=0.07)
     assert torch.equal(contiguous, whole)
+    # 8 copies of the call: 72 rows fill the card with head groups of 64
+    # where 9 rows (and a row alone) take groups of 16 in the same M tile
+    big = tops.mla_paged_decode(qa.repeat(8, 1, 1), qp.repeat(8, 1, 1), cc,
+                                cp, table=table.repeat(8, 1),
+                                pos=pos.repeat(8), scale=0.07)
+    assert torch.equal(big[-rows:], whole)
+    # a table of 70 blocks: the paged view spans two chunks of the
+    # tensor-core route (its merge runs, over one live chunk) where the
+    # contiguous view spans one
+    from repro_torch.kernels.common import MLA_CHUNK
+    wide_table = torch.cat([table, table.new_zeros((rows, 65))], dim=1)
+    assert wide_table.shape[1] * bs > MLA_CHUNK >= nblk * bs
+    for i in (2, rows - 1):
+        wide = tops.mla_paged_decode(qa[i:i + 1], qp[i:i + 1], cc, cp,
+                                     table=wide_table[i:i + 1],
+                                     pos=pos[i:i + 1], scale=0.07)
+        assert torch.equal(wide, contiguous[i:i + 1])
 
 
 def _pools(g, dev, dt, rows, depth, bs, width):
@@ -581,10 +615,15 @@ def test_cuda_moe_gmm_matches_plain(dtype, e, c, d, m, act):
     (4, 1024, 5, "swiglu"),          # qwen1.5-0.5b converted, decode
     (512, 1024, 5, "swiglu"),        # qwen1.5-0.5b, the calibration batch
     (128, 4096, 13, "swiglu"),       # llama2-7b's widest router
-    (100, 4096, 5, "geglu")])        # T not a multiple of any block
+    (100, 4096, 5, "geglu"),         # T not a multiple of any block
+    (1, 1024, 5, "swiglu"),          # one row: one block of one live warp
+    (100, 1024, 13, "geglu"),        # ragged T, the weights staged whole
+    (5000, 1024, 5, "swiglu"),       # two rows a warp (1056 blocks)
+    (4500, 4096, 13, "swiglu")])     # two rows a warp, weights in chunks
 def test_cuda_router_score_matches_plain(dtype, t, d, nr, act):
-    """router_score against its plain version (f32 out, g and u unrounded);
-    one launch counted per call."""
+    """router_score against its plain version (f32 out, g and u unrounded)
+    over router_score.plan's grids: one row a warp, several, the weights
+    staged whole or in chunks of d; one launch counted per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     from repro_torch.kernels.router_score import router_score_plain
@@ -785,6 +824,49 @@ def test_cuda_moe_gmm_tensor_cores_match_plain(c, e, d, m):
     assert ROUTE_LAUNCHES == {"tensor_core": 1}
     assert got.shape == (e, c, d) and got.dtype == torch.bfloat16
     _close(got, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mla_and_router_clone_misaligned_views(dtype):
+    """mla_paged_decode's and router_score's 16-byte copies take a
+    contiguous view whose base is off the 16-byte grid: the wrapper copies
+    it, and the result matches the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.paged_attention import (MLA_ROUTE_LAUNCHES,
+                                                     mla_paged_decode_plain,
+                                                     mla_route)
+    from repro_torch.kernels.router_score import router_score_plain
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+
+    def off_grid(shape):
+        n = 1
+        for k in shape:
+            n *= k
+        flat = torch.randn((n + 1,), generator=g, device=dev).to(dt)
+        return flat[1:].view(shape)              # one element off the grid
+
+    rows, heads, r, dr, bs, depth = 3, 16, 512, 64, 16, 70
+    cc, cp, table = off_grid((6 * 3 + 1, bs, r)), off_grid((19, bs, dr)), \
+        (torch.randperm(18, generator=g, device=dev) + 1).reshape(
+            3, 6).to(torch.int32)
+    qa, qp = off_grid((rows, heads, r)), off_grid((rows, heads, dr))
+    pos = torch.tensor([depth, 20, -1], dtype=torch.int32, device=dev)
+    assert all(t.data_ptr() % 16 for t in (qa, qp, cc, cp))
+    tops.reset_launches()
+    got = tops.mla_paged_decode(qa, qp, cc, cp, table=table, pos=pos,
+                                scale=0.1)
+    _close_rows(got, mla_paged_decode_plain(qa, qp, cc, cp, table, pos,
+                                            scale=0.1), dt)
+    x, w, u = off_grid((37, 1024)), off_grid((1024, 5)), off_grid((1024, 5))
+    _close(tops.router_score(x, w, u), router_score_plain(x, w, u), dt)
+    torch.cuda.synchronize()
+    assert MLA_ROUTE_LAUNCHES == {mla_route(dt, r, dr): 1}
+    assert tops.LAUNCHES["router_score"] == 1
 
 
 @pytest.mark.cuda

@@ -124,6 +124,115 @@ def test_mla_paged_decode_plain_at_negative_pos_is_the_view_mean(p):
                                atol=1e-5 * np.abs(mean).max())
 
 
+LOG2E = 1.4426950408889634
+
+
+def _mla_split_plain(qa, qp, cc_pool, cp_pool, table, pos, *, scale,
+                     chunk):
+    """The tensor-core route's split form (csrc/mla_tc.cuh) in plain torch:
+    each row's counted keys (those <= pos; every view key at -1e30 where
+    pos < 0) cut into chunks of `chunk` logical positions, a chunk's (m, l,
+    acc) in log2 units with p rounded to the pool's dtype for the value
+    product, then the live chunks merged in chunk order, out = acc /
+    max(l, 1e-30); where the view fits one chunk, no merge runs and a row
+    is its one chunk's acc / max(l, 1e-30), as the kernel writes it."""
+    b, nblk = table.shape
+    bs, r = cc_pool.shape[1], cc_pool.shape[2]
+    view = nblk * bs
+    tl = table.long()
+    cc = cc_pool[tl].reshape(b, view, r)
+    cp = cp_pool[tl].reshape(b, view, -1)
+    s2 = (torch.einsum("bhr,btr->bht", qa.float(), cc.float()) +
+          torch.einsum("bhp,btp->bht", qp.float(), cp.float())) * \
+        (scale * LOG2E)
+    rows = []
+    for i in range(b):
+        p = int(pos[i])
+        last = view - 1 if p < 0 else min(p, view - 1)
+        parts = []
+        for lo in range(0, last + 1, chunk):
+            hi = min(lo + chunk - 1, last)
+            sc = s2[i, :, lo:hi + 1]
+            if p < 0:
+                sc = torch.full_like(sc, -1e30)
+            m = sc.max(-1).values
+            pr = torch.exp2(sc - m[:, None])
+            acc = pr.to(cc.dtype).float() @ cc[i, lo:hi + 1].float()
+            parts.append((m, pr.sum(-1), acc))
+        if view <= chunk:
+            _, l, acc = parts[0]
+            rows.append(acc / l.clamp_min(1e-30)[:, None])
+            continue
+        mx = torch.stack([m for m, _, _ in parts]).max(0).values
+        l = torch.zeros_like(mx)
+        acc = torch.zeros_like(parts[0][2])
+        for m, lc, ac in parts:
+            wt = torch.exp2(m - mx)
+            l = l + lc * wt
+            acc = acc + ac * wt[:, None]
+        rows.append(acc / l.clamp_min(1e-30)[:, None])
+    return torch.stack(rows).to(qa.dtype)
+
+
+@pytest.mark.parametrize("bs,chunk", [(4, 8), (8, 16), (4, 12)])
+def test_mla_split_form_matches_jax(bs, chunk):
+    """The split form over views of several chunks against the JAX kernel
+    in interpret mode, in float32: rows at and beside the chunk edges, a
+    row whose counted keys fit the first chunk of a multi-chunk view (its
+    merge weighs one chunk), a row past the view's end, and rows at pos
+    -1 over the whole view."""
+    rng = np.random.default_rng(40 + bs + chunk)
+    b, h, r, dr, nblk = 9, 4, 32, 8, 10
+    nblocks = 1 + b * nblk
+    cc = rng.standard_normal((nblocks, bs, r)).astype(np.float32)
+    cp = rng.standard_normal((nblocks, bs, dr)).astype(np.float32)
+    cc[0], cp[0] = 1e4, -1e4
+    table = (rng.permutation(np.arange(1, nblocks))[:b * nblk]
+             .reshape(b, nblk).astype(np.int32))
+    view = nblk * bs
+    pos = np.array([chunk - 1, chunk, chunk + 1, 2 * chunk - 1, 2 * chunk,
+                    3, view - 1, view + 5, -1], np.int32)
+    assert view > 2 * chunk
+    qa = rng.standard_normal((b, h, r)).astype(np.float32)
+    qp = rng.standard_normal((b, h, dr)).astype(np.float32)
+    scale = (16 + dr) ** -0.5
+    want = np.asarray(jops.mla_paged_decode(
+        *(jnp.asarray(a) for a in (qa, qp, cc, cp)),
+        table=jnp.asarray(table), pos=jnp.asarray(pos), scale=scale))
+    t = [torch.from_numpy(a) for a in (qa, qp, cc, cp, table, pos)]
+    got = _mla_split_plain(*t, scale=scale, chunk=chunk).numpy()
+    for i in range(b):
+        np.testing.assert_allclose(got[i], want[i], rtol=0,
+                                   atol=1e-5 * np.abs(want[i]).max())
+    # one live chunk through the merge is bitwise the row without it
+    one = _mla_split_plain(*t, scale=scale, chunk=view).numpy()
+    np.testing.assert_array_equal(got[5], one[5])
+
+
+def test_mla_split_form_rounds_p_like_the_plain_version():
+    """In bfloat16 the split form (p rounded to the pool's dtype per chunk)
+    stays within the card's tolerance of the plain version over several
+    chunks, and a row with one live chunk is bitwise the same through a
+    merge of a wider view."""
+    g = torch.Generator().manual_seed(7)
+    b, h, r, dr, bs, nblk = 4, 12, 64, 16, 8, 12
+    cc = torch.randn((1 + b * nblk, bs, r), generator=g).bfloat16()
+    cp = torch.randn((1 + b * nblk, bs, dr), generator=g).bfloat16()
+    table = (torch.randperm(b * nblk, generator=g) + 1).reshape(
+        b, nblk).to(torch.int32)
+    pos = torch.tensor([95, 31, 40, -1], dtype=torch.int32)
+    qa = torch.randn((b, h, r), generator=g).bfloat16()
+    qp = torch.randn((b, h, dr), generator=g).bfloat16()
+    got = _mla_split_plain(qa, qp, cc, cp, table, pos, scale=0.1, chunk=32)
+    ref = mla_paged_decode_plain(qa, qp, cc, cp, table, pos, scale=0.1)
+    for i in range(b):
+        err = (got[i].float() - ref[i].float()).abs().max().item()
+        assert err <= 2e-2 * ref[i].float().abs().max().item()
+    narrow = _mla_split_plain(qa[1:2], qp[1:2], cc, cp, table[1:2, :4],
+                              pos[1:2], scale=0.1, chunk=32)
+    assert torch.equal(narrow, got[1:2])
+
+
 @functools.lru_cache(maxsize=None)
 def _attn_params(seed=0):
     """One smoke layer's MLA params from the JAX init, and the bridge's

@@ -1,7 +1,8 @@
 """Time one family of the port's kernels for one or more checkouts of this
 repository on one GPU, in one call: ``flash`` (``flash_attention``),
 ``ffn`` (``swiglu_ffn`` and ``moe_gmm``), ``decode`` (``flash_decode``
-and ``paged_attn_decode``) or ``ssd`` (``ssd_scan``).
+and ``paged_attn_decode``), ``ssd`` (``ssd_scan``), ``mla``
+(``mla_paged_decode``) or ``router`` (``router_score``).
 
 Each ROOT is a checkout (its ``src/`` holds ``repro_torch`` and it has a
 ``chip_smoke.py`` with ``time_ms``, ``graph_ms``, ``bound`` and
@@ -39,12 +40,25 @@ call or chain of the same function:
   held against the plain version (max|err| / max|ref| of y and h_fin); one
   JSON line a root, and with ``--profile`` a second with each of the
   call's CUDA kernels' device time.
+- ``mla``: ``mla_paged_decode`` in bfloat16 at chip_smoke's MLA_MAIN
+  (deepseek-v2's engine decode: 4 rows, 128 heads, r 512, dr 64, depth 80)
+  and MLA_LONG (32 rows at depth 2048), every row at depth, back to back
+  and in a CUDA graph, beside the plain version and the bound, after one
+  call held against the plain version (max|err| / max|ref|); one JSON
+  line a root, and with ``--profile`` a second with each CUDA kernel's
+  device time (the tensor-core route's split and merge kernels apart).
+- ``router``: ``router_score`` in bfloat16 at chip_smoke's ROUTER_MAIN
+  (T 512, d 1024, N_r 5) and at T 4, back to back and in a CUDA graph,
+  beside the plain version, the ``torch`` chain and the bound, after one
+  call held against the plain version; one JSON line a root.
 
     python3 tools/bench_ab.py flash build/parent . . build/parent
     python3 tools/bench_ab.py ffn build/variant . . build/variant
     python3 tools/bench_ab.py decode --profile build/parent . . build/parent
     python3 tools/bench_ab.py decode --core 128:3 256:3 512:3 256:2 256:4
     python3 tools/bench_ab.py ssd --profile build/parent . . build/parent
+    python3 tools/bench_ab.py mla --profile build/parent . . build/parent
+    python3 tools/bench_ab.py router build/parent . . build/parent
 """
 from __future__ import annotations
 
@@ -278,7 +292,85 @@ if "--profile" in sys.argv[2:]:
         name: kernel_ms(scan, sets) for name, sets in data})), flush=True)
 """
 
-BENCHES = {"flash": FLASH, "ffn": FFN, "decode": DECODE, "ssd": SSD}
+MLA = r"""
+from repro_torch.kernels.paged_attention import mla_paged_decode_plain
+
+
+def kernel(qa, qp, cc, cp, t, p):
+    return ops.mla_paged_decode(qa, qp, cc, cp, table=t, pos=p,
+                                scale=cs.MLA_SCALE)
+
+
+def plain(qa, qp, cc, cp, t, p):
+    return mla_paged_decode_plain(qa, qp, cc, cp, t, p, scale=cs.MLA_SCALE)
+
+
+out = {"root": root}
+data = []
+for name in ("MLA_MAIN", "MLA_LONG"):
+    shape = getattr(cs, name)
+
+    def one():
+        *ts, pos = cs.mla_case(g, dev, bf, **shape)
+        return ts + [pos.fill_(shape["depth"])]
+    sets = [one()]
+    sets += [one() for _ in range(cs.n_sets(
+        sum(t.numel() * t.element_size() for t in sets[0])) - 1)]
+    rows, h, r, dr, bs = (shape[k] for k in ("rows", "heads", "r", "dr",
+                                             "bs"))
+    live = shape["depth"] + 1
+    nbytes = (rows * live * (r + dr) * 2 + rows * h * (2 * r + dr) * 2
+              + rows * (-(-live // bs) + 1) * 4)
+    flops = rows * h * live * (2 * (r + dr) + 2 * r)
+    got, ref = kernel(*sets[0]), plain(*sets[0])
+    out[name] = dict(ms=cs.time_ms(kernel, sets),
+                     graph_ms=cs.graph_ms(kernel, sets),
+                     plain_ms=cs.time_ms(plain, sets),
+                     bound_ms=cs.bound(flops, nbytes, "bfloat16")[0],
+                     rel_err=((got.float() - ref.float()).abs().max() /
+                              ref.float().abs().max()).item())
+    data.append((name, sets))
+print(json.dumps(out), flush=True)
+if "--profile" in sys.argv[2:]:
+    print(json.dumps(dict({"root": root}, **{
+        name: kernel_ms(kernel, sets) for name, sets in data})), flush=True)
+"""
+
+ROUTER = r"""
+from repro_torch.kernels.router_score import router_score_plain
+
+
+def kernel(x, wg, wu):
+    return ops.router_score(x, wg, wu)
+
+
+def chain(x, wg, wu):
+    return F.silu((x @ wg).float()) * (x @ wu).float()
+
+
+out = {"root": root}
+_, d, nr = cs.ROUTER_MAIN
+for t in (cs.ROUTER_MAIN[0], 4):
+    nbytes = 2 * t * d + 2 * 2 * d * nr + 4 * t * nr
+
+    def one():
+        x = torch.randn((t, d), generator=g, device=dev).to(bf)
+        return [x] + [(torch.randn((d, nr), generator=g, device=dev) *
+                       d ** -0.5).to(bf) for _ in range(2)]
+    sets = [one() for _ in range(cs.n_sets(nbytes))]
+    got, ref = kernel(*sets[0]), router_score_plain(*sets[0])
+    out[f"T={t} d={d} N_r={nr}"] = dict(
+        ms=cs.time_ms(kernel, sets), graph_ms=cs.graph_ms(kernel, sets),
+        plain_ms=cs.time_ms(router_score_plain, sets),
+        chain_ms=cs.time_ms(chain, sets),
+        chain_graph_ms=cs.graph_ms(chain, sets),
+        bound_ms=cs.bound(4 * t * d * nr, nbytes, "bfloat16")[0],
+        rel_err=((got - ref).abs().max() / ref.abs().max()).item())
+print(json.dumps(out), flush=True)
+"""
+
+BENCHES = {"flash": FLASH, "ffn": FFN, "decode": DECODE, "ssd": SSD,
+           "mla": MLA, "router": ROUTER}
 
 CORE = "src/repro_torch/kernels/csrc/decode_split.cuh"
 COMMON = "src/repro_torch/kernels/common.py"
@@ -314,15 +406,16 @@ def main(argv: list[str]) -> int:
     ap.add_argument("bench", choices=sorted(BENCHES))
     ap.add_argument("roots", nargs="*", default=["."])
     ap.add_argument("--profile", action="store_true",
-                    help="decode, ssd: also print each kernel's device time "
-                         "per call (torch.profiler) for every root")
+                    help="decode, ssd, mla: also print each kernel's "
+                         "device time per call (torch.profiler) for every "
+                         "root")
     ap.add_argument("--core", nargs="+", metavar="L:S",
                     help="decode: time copies of the first root whose core "
                          "takes chunks of L keys (a multiple of 64) and "
                          "rings of S tiles (2 or more)")
     args = ap.parse_intermixed_args(argv)
-    if args.profile and args.bench not in ("decode", "ssd"):
-        ap.error("--profile belongs to the decode and ssd benches")
+    if args.profile and args.bench not in ("decode", "ssd", "mla"):
+        ap.error("--profile belongs to the decode, ssd and mla benches")
     if args.core and args.bench != "decode":
         ap.error("--core belongs to the decode bench")
     roots = args.roots
