@@ -82,6 +82,26 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      C = the largest expert load (no drops, equal to the exact oracle) and
      a quarter of it (drops equal to the loads past C, kept pairs equal to
      the oracle masked by keep), counts zeroed before and read after;
+     (d) the hierarchical CMoE of deepseek-v2 (each routed expert split
+     into 3 shared and 5 routed sub-experts of m' 192 with its own
+     sub-router, top-3: S3A3E8), bfloat16, 2 layers: one expert's
+     conversion time on the host, and 8 partitions on the conversion's
+     thread pool bitwise equal to the serial loop's; the unconverted
+     static path (the reference logits), then the CLI's static path
+     with --cmoe S3A3E8, converting once on the CLI's 4 x 128 calibration
+     batch (backends grouped_kernel / gather on the tensor cores; counts
+     zeroed before and read after); the same converted params with all 5
+     routed sub-experts active against the unconverted prefill logits
+     (within DS_HIER_ALL_ACTIVE_TOL of max|logit|); the device time of a
+     converted prefill and decode step by kernel (torch.profiler); layer
+     0's hierarchical FFN bitwise the same for a token alone and among
+     DS_MIXED_TOKENS tokens at decode and on a fused step, and with and
+     without dead outer rows re-aimed at the sentinel; moe_gmm_ragged and
+     moe_gather on the inputs that FFN gives them at a 4 x 32 prefill and
+     a 4-token decode (800 sub-experts of 5120 x 192), against their
+     plain versions and timed beside bounds that count live rows; then
+     the engine (serve_continuous, the phase 4 engine flags) on the
+     converted model, counts zeroed before and read after;
   6. the SSM family at full published width and depth: (a) float32, for
      mamba2-370m and zamba2-1.2b, the kernel path against the plain path
      on one set of weights: Model.forward on 2 x 1024 tokens, then a 4 x 32
@@ -157,6 +177,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -205,6 +226,19 @@ DS_ENGINE_ARGS = ["--arch", DS_ARCH, "--layers", str(DS_LAYERS)] + \
 # the widest fused step the engine sends to gather at deepseek-v2: its
 # break-even, E / k = 160 / 6 tokens (core.experts.select_backend)
 DS_MIXED_TOKENS = 26
+# the hierarchical CMoE of deepseek-v2 (phase 5d): bfloat16, depth cut to 2
+# layers (15.1 GB of expert banks; the conversion holds one more layer's);
+# S3A3E8 splits each 1536-neuron expert into 8 of m' 192: 3 shared, 5
+# routed, top-3 (800 routed sub-experts a layer)
+DS_HIER_LAYERS = 2
+DS_HIER_CMOE = "S3A3E8"
+DS_HIER_ARGS = ["--arch", DS_ARCH, "--layers", str(DS_HIER_LAYERS),
+                "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+                "--gen", str(GEN), "--seed", "0"]
+# all 5 routed sub-experts active against the unconverted model's prefill
+# logits, relative to max|logit|: the same neurons, but the shared and
+# routed parts' outputs each rounded to bfloat16 before they are summed
+DS_HIER_ALL_ACTIVE_TOL = 3e-2
 # mla_paged_decode at the engine's decode shape and at a long context
 # (r = kv_lora_rank, dr = qk_rope_head_dim, scale (dn + dr)^-0.5)
 MLA_MAIN = dict(rows=4, heads=128, r=512, dr=64, bs=16, depth=80)
@@ -2353,6 +2387,385 @@ def deepseek_serving() -> dict:
     return launches, path_a
 
 
+def capture_call(name: str, call):
+    """call() with ops.<name> wrapped to keep the arguments of its first
+    call (the inputs the path gives the kernel). Returns (call()'s result,
+    (args, kwargs))."""
+    from repro_torch.kernels import ops
+    kernel = getattr(ops, name)
+    seen = []
+
+    def wrapper(*args, **kwargs):
+        if not seen:
+            seen.append((args, kwargs))
+        return kernel(*args, **kwargs)
+
+    setattr(ops, name, wrapper)
+    try:
+        out = call()
+    finally:
+        setattr(ops, name, kernel)
+    return out, seen[0]
+
+
+def hierarchical_ffn_checks(model, params, records: dict) -> None:
+    """Phase 5d on layer 0 of the converted model: the hierarchical FFN
+    bitwise width-invariant (a token alone and among DS_MIXED_TOKENS, at
+    decode and on a fused step) and unchanged by re-aiming dead outer rows
+    at the sentinel; then moe_gmm_ragged (a 4 x 32 prefill) and moe_gather
+    (a 4-token decode) on the inputs the FFN gives them, against their
+    plain versions on the rows that carry data, and timed beside their
+    plain versions, the bmm chains and bounds that count live rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import hierarchical as hier
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gather import moe_gather_plain
+    from repro_torch.kernels.moe_gmm import moe_gmm_ragged_plain
+    from repro_torch.models.model import tree_map
+
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    p0 = tree_map(lambda a: a[0], params["blocks"])
+    d, k = cfg.d_model, cfg.cmoe.top_k
+
+    def ffn(x, phase):
+        return hier.hierarchical_moe_ffn(x, p0, cfg, use_kernel=True,
+                                         phase=phase)[0]
+
+    x = torch.randn((DS_MIXED_TOKENS, 1, d), generator=g, device=dev).to(bf)
+    for phase in ("decode", "mixed"):
+        full = ffn(x, phase)
+        for r in (0, DS_MIXED_TOKENS // 2, DS_MIXED_TOKENS - 1):
+            if not torch.equal(ffn(x[r:r + 1], phase)[0], full[r]):
+                raise AssertionError(f"hierarchical FFN ({phase}): token {r}"
+                                     f" alone differs from its row among "
+                                     f"{DS_MIXED_TOKENS}")
+    reaim = hier.dead_rows_to_sentinel
+    hier.dead_rows_to_sentinel = lambda flat_sub, occ, sentinel: flat_sub
+    try:
+        kept = ffn(x[:BATCH], "decode")
+    finally:
+        hier.dead_rows_to_sentinel = reaim
+    if not torch.equal(kept, ffn(x[:BATCH], "decode")):
+        raise AssertionError("re-aiming dead outer rows at the sentinel "
+                             "changed the hierarchical FFN's output")
+    print(f"[invariance] hierarchical FFN ({cfg.cmoe.tag()}, layer 0, "
+          f"bf16): a token alone == its row among {DS_MIXED_TOKENS} at "
+          f"decode (moe_gather) and on a fused step (moe_gmm_ragged), "
+          f"bitwise; dead outer rows re-aimed at the sentinel or not: "
+          f"bitwise equal ({BATCH} decode tokens)")
+
+    def bound_live(live_rows, x_rows, ids, m):
+        """Bound of the FFN on the rows that carry data: each live row's
+        input and output once, each distinct live sub-expert's slabs once."""
+        distinct = int(torch.unique(ids).numel())
+        nbytes = 2 * (3 * distinct * d * m + x_rows * d + live_rows * d)
+        return distinct, bound(6 * live_rows * d * m, nbytes, "bfloat16")
+
+    # moe_gmm_ragged at a 4 x 32 prefill
+    xp = torch.randn((BATCH, PROMPT, d), generator=g, device=dev).to(bf)
+    _, (args, kw) = capture_call("moe_gmm_ragged", lambda: ffn(xp, "prefill"))
+    lay, owner, wg, wu, wd = args
+    block = kw["block_c"]
+    m = wg.shape[2]
+    got = routed("moe_gmm_ragged", "tensor_core",
+                 lambda: ops.moe_gmm_ragged(*args, **kw))
+    live = lay.abs().amax(dim=1) > 0                       # rows with data
+    tiles = live.reshape(-1, block).any(dim=1)
+    err = check(f"moe_gmm_ragged hierarchical ({wg.shape[0]} sub-experts)",
+                got, moe_gmm_ragged_plain(*args, "swiglu", block), bf)
+    n_live = int(live.sum())
+    distinct, (b_ms, b_by) = bound_live(
+        n_live, n_live, owner[tiles].long(), m)
+
+    def chain(xp_, o, wg_, wu_, wd_):
+        own = o.long()
+        xb = xp_.reshape(-1, block, d)
+        h = F.silu(torch.bmm(xb, wg_[own])) * torch.bmm(xb, wu_[own])
+        return torch.bmm(h, wd_[own])
+
+    kernel = lambda *a: ops.moe_gmm_ragged(*a, block_c=block)  # noqa: E731
+    rec = dict(shape=f"P={lay.shape[0]} live rows={n_live} in "
+                     f"{int(tiles.sum())} of {tiles.numel()} tiles, "
+                     f"E'={wg.shape[0]} d={d} m'={m} distinct live "
+                     f"sub-experts={distinct}",
+               max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+               ms=time_ms(kernel, [args], iters=10),
+               graph_ms=graph_ms(kernel, [args], iters=10),
+               plain_ms=time_ms(lambda *a: moe_gmm_ragged_plain(
+                   *a, "swiglu", block), [args], iters=3),
+               library_ms=time_ms(chain, [args], iters=3))
+    cut = int(tiles.nonzero().max()) + 1          # through the last live tile
+    rec["live_tiles_ms"] = time_ms(
+        kernel, [[lay[:cut * block], owner[:cut], wg, wu, wd]], iters=10)
+    records["moe_gmm_ragged"]["hierarchical"] = rec
+    print(f"[time] moe_gmm_ragged hierarchical prefill ({rec['shape']}): "
+          f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} in a CUDA graph), "
+          f"through the last live tile {rec['live_tiles_ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, chain {rec['library_ms']:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})")
+
+    # moe_gather at a 4-token decode
+    xd = torch.randn((BATCH, 1, d), generator=g, device=dev).to(bf)
+    _, (args, kw) = capture_call("moe_gather", lambda: ffn(xd, "decode"))
+    xf, ids, wg, wu, wd = args
+    n_sub = wg.shape[0]
+    got = routed("moe_gather", "tensor_core",
+                 lambda: ops.moe_gather(*args, **kw))
+    live = ids < n_sub
+    row_live = live.reshape(-1, k).any(dim=1)
+    tok = row_live.nonzero()[:, 0]                          # outer live rows
+    sel = torch.cat([tok, (~row_live).nonzero()[:1, 0]])    # and a dead one
+    sub_ids = ids.reshape(-1, k)[sel].reshape(-1)
+    err = check(f"moe_gather hierarchical ({n_sub} sub-experts, live outer "
+                f"rows)", got.reshape(-1, k, d)[sel].reshape(-1, d),
+                moe_gather_plain(xf[sel], sub_ids, wg, wu, wd, top_k=k), bf,
+                sentinel_rows=sub_ids == n_sub)
+    if got[~live].abs().max() != 0:
+        raise AssertionError("moe_gather: sentinel rows are not exactly zero")
+    n_live = int(live.sum())
+    distinct, (b_ms, b_by) = bound_live(n_live, int(tok.numel()), ids[live],
+                                        wg.shape[2])
+    kernel = lambda *a: ops.moe_gather(*a, top_k=k)  # noqa: E731
+    sub = [xf[tok], ids.reshape(-1, k)[tok].reshape(-1), wg, wu, wd]
+
+    def chain(xf_, i, wg_, wu_, wd_):
+        i = i.long().clamp(max=n_sub - 1)
+        xr = xf_.repeat_interleave(k, dim=0)[:, None]
+        h = F.silu(torch.bmm(xr, wg_[i])) * torch.bmm(xr, wu_[i])
+        return torch.bmm(h, wd_[i])[:, 0]
+
+    rec = dict(shape=f"rows={ids.numel()} live={n_live} (outer rows "
+                     f"{xf.shape[0]}, live {tok.numel()}) E'={n_sub} d={d} "
+                     f"m'={wg.shape[2]} distinct live sub-experts="
+                     f"{distinct}",
+               max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+               ms=time_ms(kernel, [args], iters=10),
+               graph_ms=graph_ms(kernel, [args], iters=10),
+               live_rows_ms=time_ms(kernel, [sub], iters=10),
+               plain_live_rows_ms=time_ms(
+                   lambda *a: moe_gather_plain(*a, top_k=k), [sub], iters=3),
+               library_live_rows_ms=time_ms(chain, [sub], iters=3))
+    records["moe_gather"]["hierarchical"] = rec
+    print(f"[time] moe_gather hierarchical decode ({rec['shape']}): "
+          f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} in a CUDA graph); on "
+          f"the live outer rows alone {rec['live_rows_ms']:.4f} ms, plain "
+          f"{rec['plain_live_rows_ms']:.4f} ms, chain "
+          f"{rec['library_live_rows_ms']:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by})")
+
+
+def conversion_cost() -> None:
+    """The host's share of a hierarchical conversion, at deepseek-v2's
+    expert width (d 5120, m 1536, bfloat16, CALIB_ROWS calibration rows,
+    DS_HIER_CMOE): one expert's convert_expert (profile on the card,
+    partition on the host), and 8 experts' partitions one after another and
+    on the thread pool convert_moe_model uses, which must agree bit for
+    bit."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import hierarchical as hier
+    from repro_torch.core.partition import partition_neurons
+    from repro_torch.launch.serve import parse_sxayez
+
+    cfg = get_config(DS_ARCH)
+    d, m = cfg.d_model, cfg.moe.d_expert
+    cm = parse_sxayez(DS_HIER_CMOE)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    x = torch.randn((CALIB_ROWS, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    profiles, seconds = [], []
+    for _ in range(8):
+        w = {n: (torch.randn(s, generator=g, device=dev) * s[0] ** -0.5).to(
+            torch.bfloat16) for n, s in (("wg", (d, m)), ("wu", (d, m)),
+                                         ("wd", (m, d)))}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hier.convert_expert(w["wg"], w["wu"], w["wd"], x, cm, cfg.activation)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        profiles.append(hier.profile_expert(w, x, cm, cfg.activation))
+    t0 = time.perf_counter()
+    serial = [partition_neurons(a, mu, cm) for a, mu in profiles]
+    t_serial = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pooled = hier.partition_experts(profiles, cm)
+    t_pool = time.perf_counter() - t0
+    for one, other in zip(serial, pooled):
+        if not ((one.routed_idx == other.routed_idx).all() and
+                (one.rep_idx == other.rep_idx).all() and
+                (one.shared_idx == other.shared_idx).all()):
+            raise AssertionError("the thread pool's partitions differ from "
+                                 "the serial loop's")
+    print(f"[convert] one expert's convert_expert at {d}x{m} "
+          f"({DS_HIER_CMOE}, {CALIB_ROWS} calibration rows): "
+          f"{min(seconds[1:]):.3f}-{max(seconds[1:]):.3f} s after the first "
+          f"({seconds[0]:.3f} s); 8 partitions {t_serial:.3f} s serially, "
+          f"{t_pool:.3f} s on {len(os.sched_getaffinity(0))} threads, "
+          f"bitwise equal")
+
+
+def hierarchical_trace(model, params, prompts, host_ms: dict) -> None:
+    """Where a converted prefill (4 x 32) and a decode step (4 lanes) spend
+    the card's time: each CUDA kernel's device ms a call (torch.profiler),
+    their sum against the static path's host-timed ms, and the kernels
+    that take most of it."""
+    import torch
+    _, cache = model.prefill(params, {"tokens": prompts},
+                             max_len=PROMPT + GEN)
+    tok = prompts[:, -1:]
+    calls = {"prefill": lambda: model.prefill(params, {"tokens": prompts}),
+             "decode": lambda: model.decode_step(params, tok, cache, PROMPT)}
+    for phase, fn in calls.items():
+        per = kernel_ms(fn, [[]], calls=3)
+        busy = sum(per.values())
+        top = ", ".join(f"{name.strip()} {ms:.3f}" for name, ms in
+                        sorted(per.items(), key=lambda kv: -kv[1])[:6])
+        print(f"[trace] hierarchical {phase}: {busy:.2f} ms of device time "
+              f"a call against {host_ms[phase]:.2f} ms on the host's clock "
+              f"(idle share {max(0.0, 1 - busy / host_ms[phase]):.2f}); "
+              f"most: {top}")
+    del cache
+    torch.cuda.synchronize()
+
+
+def deepseek_hierarchical(records: dict) -> tuple[dict, dict]:
+    """Phase 5d: deepseek-v2 at full width, bfloat16, DS_HIER_LAYERS
+    layers, converted hierarchically (DS_HIER_CMOE) once through the CLI's
+    static entry point, then checked (all-active exactness, the FFN's
+    checks) and served by the engine. Returns the launch counts of the
+    static run and of the engine run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    print(f"[cut] {DS_ARCH} hierarchical {DS_HIER_CMOE}: depth 60 -> "
+          f"{DS_HIER_LAYERS} layers (phase 5d, bfloat16; every width as "
+          f"published); converted once on the CLI's 4 x 128 calibration "
+          f"batch; requests and generated tokens as in phases 3b and 4")
+    free_device("phase 5d")
+    conversion_cost()
+    torch.cuda.reset_peak_memory_stats()
+    ref = serve.run(DS_HIER_ARGS)
+    ref_logits = ref["prefill_logits"]
+    print(f"[e2e deepseek hierarchical] unconverted reference, "
+          f"{DS_HIER_LAYERS} layers: prefill {ref['prefill_ms']:.2f} ms, "
+          f"decode {ref['decode_tok_s']:.1f} tok/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del ref
+    free_device("phase 5d's conversion")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = serve.run(DS_HIER_ARGS + ["--cmoe", DS_HIER_CMOE])
+    torch.cuda.synchronize()
+    static = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    toks = torch.as_tensor(res["tokens"])
+    vocab = get_config(DS_ARCH).vocab_size
+    if toks.shape != (BATCH, GEN) or toks.min() < 0 or \
+            toks.max() >= vocab or \
+            not torch.isfinite(res["prefill_logits"]).all():
+        raise AssertionError(f"bad hierarchical serve output: tokens "
+                             f"{tuple(toks.shape)}")
+    if res["backends"] != {"prefill": "grouped_kernel", "decode": "gather"}:
+        raise AssertionError(f"hierarchical backends per phase: "
+                             f"{res['backends']}")
+    # the calibration forward of the unconverted model runs moe_gmm_ragged
+    # once a layer; the converted prefills (a warm-up and the timed ones)
+    # once a layer each, and only the converted decode runs moe_gather
+    want = DS_HIER_LAYERS * (2 + serve.PREFILL_REPEATS)
+    if static["moe_gmm_ragged"] < want or static["moe_gather"] <= 0:
+        raise AssertionError(f"hierarchical static path launches {static}: "
+                             f"want moe_gmm_ragged >= {want} and moe_gather "
+                             f"> 0")
+    agree = int((res["prefill_logits"].argmax(-1) ==
+                 ref_logits.argmax(-1)).sum())
+    print(f"[e2e deepseek hierarchical] static {DS_HIER_CMOE}: convert "
+          f"{res['convert_s']:.2f} s (profile {res['convert_profile_s']:.2f}"
+          f" s, cluster {res['convert_cluster_s']:.2f} s), prefill "
+          f"{res['prefill_ms']:.2f} ms ({BATCH}x{PROMPT}, median of "
+          f"{serve.PREFILL_REPEATS} warm), decode {res['decode_tok_s']:.1f} "
+          f"tok/s ({BATCH} lanes, {GEN - 1} steps), peak {peak:.1f} GB, "
+          f"first greedy token as unconverted {agree}/{BATCH}, launches "
+          f"{static}")
+    kernel_routes("phase 5d hierarchical static bf16", "tensor_core")
+    model, params = res["model"], res["params"]
+    host_ms = {"prefill": res["prefill_ms"],
+               "decode": 1e3 * BATCH / res["decode_tok_s"]}
+    del res
+
+    # all-active: the converted weights with every routed sub-expert on
+    cm = model.cfg.cmoe
+    m_all = build_model(model.cfg.with_cmoe(dataclasses.replace(
+        cm, top_k=cm.num_routed)), use_kernel=True, device="cuda")
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, vocab, (BATCH, PROMPT)), dtype=torch.long, device="cuda")
+    logits = m_all.prefill(params, {"tokens": prompts})[0].float().cpu()
+    err = (logits - ref_logits).abs().max().item()
+    scale = ref_logits.abs().max().item()
+    if not (torch.isfinite(logits).all() and
+            err <= DS_HIER_ALL_ACTIVE_TOL * scale):
+        raise AssertionError(f"all-active conversion: max|err| {err:.3e} > "
+                             f"{DS_HIER_ALL_ACTIVE_TOL} x max|logit| "
+                             f"{scale:.3e}")
+    print(f"[e2e deepseek hierarchical] all {cm.num_routed} routed "
+          f"sub-experts active vs the unconverted model, prefill logits "
+          f"{BATCH}x{PROMPT}: max|err| / max|logit| {err / scale:.3e} (tol "
+          f"{DS_HIER_ALL_ACTIVE_TOL}), greedy tokens agree "
+          f"{int((logits.argmax(-1) == ref_logits.argmax(-1)).sum())}/"
+          f"{BATCH}")
+    del m_all
+    hierarchical_trace(model, params, prompts, host_ms)
+    hierarchical_ffn_checks(model, params, records)
+
+    args = serve.parser().parse_args(
+        ENGINE_ARGS[ENGINE_ARGS.index("--continuous"):])
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    res = serve.serve_continuous(model, params, args)
+    torch.cuda.synchronize()
+    engine = dict(ops.LAUNCHES)
+    rep = res["report"]
+    if res["parity"] != ["overlap == sequential", "paged == contiguous"]:
+        raise AssertionError(f"hierarchical engine parity replays "
+                             f"{res['parity']}")
+    if not all(r.done for r in rep.requests) or rep.dropped_pairs or \
+            not rep.pool_audit.get("ok") or rep.pool_audit.get("allocated"):
+        raise AssertionError(f"hierarchical engine: unfinished requests, "
+                             f"drops or a bad audit {rep.pool_audit}")
+    for name in ("mla_paged_decode", "moe_gmm_ragged", "moe_gather"):
+        if engine[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"hierarchical engine's path")
+    bc = {ph: dict(c) for ph, c in rep.backend_counts.items()}
+    print(f"[e2e deepseek hierarchical engine] {rep.num_requests} requests,"
+          f" {rep.total_new_tokens} tokens in {rep.steps} steps, wall "
+          f"{rep.wall_s:.3f} s, goodput {rep.goodput:.1f} tok/s, TTFT "
+          f"p50/p95 {rep.ttft_p50_s * 1e3:.1f}/{rep.ttft_p95_s * 1e3:.1f} "
+          f"ms, TPOT p50/p95 {rep.tpot_p50_s * 1e3:.2f}/"
+          f"{rep.tpot_p95_s * 1e3:.2f} ms, overlap occupancy "
+          f"{rep.overlap_occupancy:.3f}, backends {bc}, audit "
+          f"{rep.pool_audit}, parity {res['parity']}, launches {engine}, "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    kernel_routes("phase 5d hierarchical engine bf16", "tensor_core")
+    return static, engine
+
+
 def free_device(what: str) -> None:
     """Release what earlier phases left and print what is still allocated
     before `what`, before and after a garbage collection (a finished
@@ -2733,6 +3146,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"static path")
         records[name]["launches_static"] = launches[name]
+    del res                       # it holds the converted model and params
 
     # phase 4: the continuous-batching engine, paged, overlapped
     width_invariance()
@@ -2753,6 +3167,12 @@ def main(argv=None) -> int:
     records["mla_paged_decode"]["launches"] = launches["mla_paged_decode"]
     for name in ("moe_gmm_ragged", "moe_gather"):
         records[name]["launches_deepseek_engine"] = launches[name]
+    del path_a, launches
+    static, engine = deepseek_hierarchical(records)
+    for name in ("moe_gmm_ragged", "moe_gather"):
+        records[name]["launches_hierarchical_static"] = static[name]
+    for name in ("moe_gmm_ragged", "moe_gather", "mla_paged_decode"):
+        records[name]["launches_hierarchical"] = engine[name]
 
     # phase 6: mamba2-370m and zamba2-1.2b at full width and depth
     for arch in SSM_ARCHS:

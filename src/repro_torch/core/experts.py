@@ -429,14 +429,29 @@ def microbatch_backend(cfg, num_tokens: int, phase: str, *,
     """The backend ``routed_experts`` will run for a (phase, num_tokens)
     micro-batch of this model: None without routed experts, the override
     when one is pinned, else the auto choice (grouped_kernel falls back to
-    grouped_plain for non-glu banks, which the kernel does not take)."""
-    if getattr(cfg, "cmoe", None) is None and \
-            getattr(cfg, "moe", None) is None:
+    grouped_plain for non-glu banks, which the kernel does not take).
+
+    For a hierarchical model (cfg.moe and cfg.cmoe both set) the call the
+    choice is for is the inner sub-expert pass of
+    ``core.hierarchical.hierarchical_moe_ffn``: it runs on the outer ragged
+    layout's P rows against the flattened E*N_r' sub-expert bank, so the
+    choice is made on those extents, not on the token count."""
+    cm = getattr(cfg, "cmoe", None)
+    moe = getattr(cfg, "moe", None)
+    if cm is None and moe is None:
         return None
     if override not in (None, "auto"):
         return override
-    be = select_backend(num_tokens, cfg, phase, use_kernel=use_kernel,
-                        effective_k=effective_k)
+    if cm is not None and moe is not None:
+        e = moe.num_experts
+        p_total = round_up(num_tokens * moe.top_k +
+                           e * (RAGGED_BLOCK_PLAIN - 1), RAGGED_BLOCK_PLAIN)
+        be = select_backend(p_total, cfg, phase, use_kernel=use_kernel,
+                            num_experts=e * cm.num_routed, top_k=cm.top_k,
+                            effective_k=effective_k)
+    else:
+        be = select_backend(num_tokens, cfg, phase, use_kernel=use_kernel,
+                            effective_k=effective_k)
     if be == "grouped_kernel" and cfg.activation not in ("swiglu", "geglu"):
         be = "grouped_plain"
     return be

@@ -1,7 +1,7 @@
 """Serving CLI: build a model from a seed (a dense decoder, optionally
 converted to CMoE on a synthetic calibration batch, deepseek-v2's MLA +
-pretrained MoE as it stands, or a Mamba2 / zamba2 model), then serve. Port
-of ``repro/launch/serve.py``.
+pretrained MoE as it stands or hierarchically converted, or a Mamba2 /
+zamba2 model), then serve. Port of ``repro/launch/serve.py``.
 
 Static mode (default): one prefill and a greedy (or temperature) decode
 loop. ``--continuous``: the continuous-batching engine
@@ -15,14 +15,19 @@ Runs on the GPU (``cuda``) unless ``--device cpu`` is given, and raises when
 no GPU is present and the CPU was not asked for. ``--use-kernel`` defaults
 to on exactly on CUDA; ``--no-use-kernel`` runs the plain PyTorch path.
 ``--layers N`` cuts the depth (widths stay as published) so that a large
-arch fits one card. ``--cmoe`` on an MoE arch (hierarchical conversion) is
-not ported yet and raises, the ``--smoke --continuous`` default included.
+arch fits one card. ``--cmoe`` on an MoE arch converts it hierarchically
+(``core.hierarchical``: each routed expert split into shared and routed
+sub-experts), after the ``--layers`` cut; the ``--smoke --continuous``
+default (``--cmoe S2A2E8``) does so too, and ``--tier`` then sets the
+sub-level k.
 The SSM and hybrid archs (mamba2-370m, zamba2-1.2b) serve statically only,
 as in the reference: ``--cmoe`` (conversion does not apply to them) and
 ``--continuous`` (the engine needs a positional KV cache) are refused.
 
     python -m repro_torch.launch.serve --cmoe S3A3E8
     python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 4
+    python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 2 \
+        --cmoe S3A3E8
     python -m repro_torch.launch.serve --arch mamba2-370m
     python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
     python -m repro_torch.launch.serve --smoke --cmoe S3A3E8 --device cpu
@@ -47,6 +52,7 @@ from repro_torch.config import CMoEConfig, override
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.convert import check_convertible, convert_dense_model
 from repro_torch.core.experts import BACKENDS, microbatch_backend
+from repro_torch.core.hierarchical import convert_moe_model
 from repro_torch.data import make_calibration_batch
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import build_model
@@ -156,7 +162,9 @@ def run(argv=None) -> dict:
     """Parse, build, (convert), prefill and decode. Returns the numbers the
     CLI prints: prefill_ms (median of PREFILL_REPEATS warm prefills),
     decode_tok_s, tokens (B, gen), backends per phase, conversion seconds,
-    and per-backend decode tok/s for 'all'."""
+    and per-backend decode tok/s for 'all'; and the served (converted)
+    model and params, so a caller can run them further without converting
+    again. In --continuous mode, serve_continuous's dict instead."""
     args = parser().parse_args(argv)
     if args.capacity_factor is not None:
         raise NotImplementedError(
@@ -183,12 +191,6 @@ def run(argv=None) -> dict:
             False
     backend = None if args.backend in (None, "auto", "all") else args.backend
     cfg = override(cfg, dtype="float32") if args.smoke else cfg
-    if args.cmoe and cfg.moe is not None:
-        # refused before the model is built: a full-depth MoE arch does not
-        # fit the card, so the block's own refusal would never be reached
-        raise NotImplementedError(
-            f"hierarchical CMoE (--cmoe {args.cmoe} on the MoE arch "
-            f"{cfg.name}) is not ported yet")
     if args.layers is not None:
         print(f"[layers] depth cut from {cfg.num_layers} to {args.layers} "
               f"layers; widths as published (d_model {cfg.d_model}, "
@@ -213,9 +215,16 @@ def run(argv=None) -> dict:
                                        seed=args.seed)
         calib = {"tokens": torch.as_tensor(calib["tokens"],
                                            dtype=torch.long, device=device)}
-        model, params, report = convert_dense_model(model, params, calib, cm)
+        if cfg.family == "moe":
+            model, params, report = convert_moe_model(model, params, calib,
+                                                      cm)
+        else:
+            model, params, report = convert_dense_model(model, params,
+                                                        calib, cm)
         _sync(device)
         result["convert_s"] = report.seconds_total
+        result["convert_profile_s"] = report.seconds_profile
+        result["convert_cluster_s"] = report.seconds_cluster
         print(f"[cmoe] converted {report.num_layers} layers ({cm.tag()}) in "
               f"{report.seconds_total:.2f}s (profile "
               f"{report.seconds_profile:.2f}s, cluster "
@@ -287,7 +296,8 @@ def run(argv=None) -> dict:
     tput = args.batch * steps / max(t_decode, 1e-9)
     result.update(prefill_ms=t_prefill * 1e3, decode_tok_s=tput,
                   decode_s=t_decode, tokens=out.tolist(),
-                  prefill_logits=logits.float().cpu())
+                  prefill_logits=logits.float().cpu(), model=model,
+                  params=params)
     tag = model.backend or "auto"
     print(f"prefill: {t_prefill * 1e3:.1f} ms for "
           f"{args.batch}x{args.prompt_len} tokens (median of "

@@ -184,10 +184,21 @@ def dense_block(x: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
 
 def _apply_moe(ffn_in: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
     """The pretrained MoE on one device (the reference's mesh-local
-    dispatch is not ported). Hierarchical CMoE (a converted MoE) raises
-    rather than serving the unconverted experts."""
+    dispatch is not ported), or on a converted block (cfg.cmoe set) the
+    hierarchical CMoE FFN, which takes the whole block dict. A CMoE config
+    whose block holds no converted experts raises rather than serving the
+    unconverted ones under a conversion tag."""
     if cfg.cmoe is not None:
-        raise NotImplementedError("hierarchical CMoE is not ported yet")
+        if "cmoe" not in p:
+            raise ValueError(
+                f"{cfg.name}: a hierarchical CMoE config on a block with "
+                f"no converted experts (convert with "
+                f"core.hierarchical.convert_moe_model)")
+        from repro_torch.core.hierarchical import hierarchical_moe_ffn
+        return hierarchical_moe_ffn(ffn_in, p, cfg, use_kernel=ctx.use_kernel,
+                                    backend=ctx.backend, phase=ctx.phase,
+                                    valid=_token_valid_flat(ctx),
+                                    k_row=_row_k_flat(ffn_in, ctx))
     from repro_torch.models.moe import moe_ffn
     return moe_ffn(ffn_in, p["moe"], cfg, use_kernel=ctx.use_kernel,
                    backend=ctx.backend, phase=ctx.phase,

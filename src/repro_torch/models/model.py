@@ -1,5 +1,6 @@
 """Model facade for the dense decoder family, deepseek-v2 (MLA + the
-pretrained MoE), Mamba2 (SSM) and the zamba2 hybrid.
+pretrained MoE, or its hierarchical CMoE conversion), Mamba2 (SSM) and the
+zamba2 hybrid.
 
 Port of the dense, mla_moe, ssm and hybrid paths of
 ``repro/models/model.py``. Parameters are nested dicts of tensors in the
@@ -11,8 +12,8 @@ pools of (L, nblocks, bs, KH, hd), and for MLA (latent, rope key) tuples of
 nblocks, bs, dr); for Mamba2 (conv state, SSM state) tuples of (L, B,
 cw-1, di+2N) / (L, B, nh, hp, N), and for the hybrid that pair followed by
 the shared attention block's k and v of (n_apps, B, T, KH, hd). ``step``
-updates every cache in place. Other families (llama4's GQA MoE,
-hierarchical CMoE, enc-dec, VLM) are not ported yet and raise.
+updates every cache in place. Other families (llama4's GQA MoE, enc-dec,
+VLM) are not ported yet and raise.
 """
 from __future__ import annotations
 

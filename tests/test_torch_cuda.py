@@ -1058,3 +1058,100 @@ def test_cuda_routed_rows_are_bitwise_equal_across_kernels(t, k, e, d, m):
             for b in ("gather", "grouped_kernel")]
     assert torch.equal(outs[0], outs[1])
     torch.cuda.synchronize()
+
+
+def _hier_case(g, dev, dtype, *, d=1024, e=16, k=4, m=64, n_s=3, n_r=5,
+               k_sub=3):
+    """A hierarchical (converted MoE) block at a medium width: the top
+    level's router, balance bias and 2 shared experts, and per expert n_s
+    shared sub-experts and n_r routed ones of m neurons with a sub-router,
+    a sub-level bias and u. Returns (cfg, block params)."""
+    from types import SimpleNamespace
+
+    from repro_torch.config import CMoEConfig, MoEConfig
+    dt = getattr(torch, dtype)
+
+    def w(*shape, fan_in=None):
+        fan = fan_in if fan_in is not None else shape[-2]
+        return (torch.randn(shape, generator=g, device=dev) *
+                fan ** -0.5).to(dt)
+
+    def small(*shape, scale):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    ms, ds = n_s * m, 2 * m
+    cfg = SimpleNamespace(
+        name="hierarchical-medium", activation="swiglu",
+        moe=MoEConfig(num_experts=e, top_k=k, d_expert=(n_s + n_r) * m,
+                      num_shared=2, d_shared=ds),
+        cmoe=CMoEConfig(num_experts=n_s + n_r, num_shared=n_s, top_k=k_sub))
+    p = {"moe": {"router": w(d, e), "balance_bias": small(e, scale=0.05),
+                 "shared_wg": w(d, ds), "shared_wu": w(d, ds),
+                 "shared_wd": w(ds, d)},
+         "cmoe": {"shared": {"wg": w(e, d, ms), "wu": w(e, d, ms),
+                             "wd": w(e, ms, d)},
+                  "routed": {"wg": w(e, n_r, d, m), "wu": w(e, n_r, d, m),
+                             "wd": w(e, n_r, m, d)},
+                  "router": {"wg_r": w(e, d, n_r), "wu_r": w(e, d, n_r)},
+                  "u": small(e, n_r, scale=0.5),
+                  "bias": small(e, n_r, scale=0.05)}}
+    return cfg, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("phase,b,s", [("prefill", 4, 32), ("decode", 4, 1),
+                                       ("mixed", 26, 1)])
+def test_cuda_hierarchical_ffn_matches_plain(dtype, phase, b, s):
+    """hierarchical_moe_ffn on the kernel path (moe_gmm_ragged at prefill
+    and on fused steps, moe_gather at decode) against its plain path at a
+    medium width, with a masked row and sub-level tiers below K_max."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.core.hierarchical import hierarchical_moe_ffn
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    cfg, p = _hier_case(g, dev, dtype)
+    x = torch.randn((b, s, 1024), generator=g, device=dev).to(
+        getattr(torch, dtype))
+    valid = torch.ones((b * s, 1), dtype=torch.bool, device=dev)
+    valid[1] = False
+    k_row = torch.randint(1, 4, (b * s,), generator=g, device=dev)
+    want = "gather" if phase == "decode" else "grouped_kernel"
+    tops.reset_launches()
+    got, aux = hierarchical_moe_ffn(x, p, cfg, use_kernel=True, phase=phase,
+                                    valid=valid, k_row=k_row)
+    name = "moe_gather" if want == "gather" else "moe_gmm_ragged"
+    assert tops.LAUNCHES[name] == 1
+    ref, _ = hierarchical_moe_ffn(
+        x, p, cfg, use_kernel=False, phase=phase, valid=valid, k_row=k_row,
+        backend="gather" if want == "gather" else "grouped_plain")
+    tol = (1e-4 if dtype == "float32" else 2e-2) * \
+        ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    assert int(aux["dropped"]) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["decode", "mixed"])
+def test_cuda_hierarchical_ffn_is_width_invariant(phase):
+    """bf16 on the kernel path: a token's hierarchical output is bitwise
+    the same alone and among 26 tokens (gather at decode, the ragged
+    kernel on fused steps), through the outer segment products as well."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.core.hierarchical import hierarchical_moe_ffn
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    cfg, p = _hier_case(g, dev, "bfloat16")
+    x = torch.randn((26, 1, 1024), generator=g, device=dev).to(
+        torch.bfloat16)
+    full, _ = hierarchical_moe_ffn(x, p, cfg, use_kernel=True, phase=phase)
+    for r in (0, 13, 25):
+        one, _ = hierarchical_moe_ffn(x[r:r + 1], p, cfg, use_kernel=True,
+                                      phase=phase)
+        assert torch.equal(one[0], full[r]), r
+    torch.cuda.synchronize()

@@ -7,7 +7,9 @@ sequential, paged == contiguous, chunked == unchunked, prefix reuse on ==
 off, preemption-pressured == unpressured, mixed tiers == each request run
 alone, keyed sampling at temperature > 0 schedule-invariant), zero dropped
 pairs and a clean pool audit. Then truncation, pool exhaustion, the CLI,
-and one run against the JAX engine on the same weights and requests.
+and one run against the JAX engine on the same weights and requests; then
+the same gates on deepseek-v2 (MLA + MoE), as it stands and converted
+hierarchically.
 """
 import dataclasses
 import gc
@@ -29,9 +31,11 @@ from repro_torch.bridge import params_from_jax_numpy
 from repro_torch.config import CMoEConfig, override
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.convert import convert_dense_model
+from repro_torch.core.hierarchical import convert_moe_model
 from repro_torch.data import make_calibration_batch
 from repro_torch.launch import serve as tserve
 from repro_torch.models import build_model
+from repro_torch.models.model import tree_map
 from repro_torch.serving import Request, ServingEngine, make_requests
 
 CM = dict(num_experts=8, num_shared=3, top_k=3)
@@ -334,15 +338,103 @@ def test_deepseek_cli_static_and_engine(deepseek):
     assert res["report"].pool_audit["ok"]
 
 
+# ---------------------- hierarchical CMoE of deepseek-v2 (converted MoE)
+
+@pytest.fixture(scope="module")
+def hier(deepseek):
+    """The deepseek-v2 smoke model converted hierarchically at the CLI's
+    smoke default S2A2E8 on its 4 x 128 calibration batch, kernel routes
+    on (their plain versions run on CPU tensors)."""
+    model, params = deepseek
+    calib = make_calibration_batch(model.cfg.vocab_size, 4, 128, seed=0)
+    model, params, _ = convert_moe_model(
+        model, tree_map(torch.clone, params),
+        {"tokens": torch.as_tensor(calib["tokens"], dtype=torch.long)},
+        CMoEConfig(num_experts=8, num_shared=2, top_k=2))
+    return model, params
+
+
+@pytest.mark.parametrize("case", list(DS_CASES))
+def test_hierarchical_engine_parity(hier, case):
+    """The engine's parity gates on the converted model (every step kind:
+    prefill chunks, decode, fused mixed steps, with padded rows masked):
+    identical streams, zero dropped pairs and a clean pool audit (checked
+    in _run)."""
+    model, params = hier
+    kw, base_kw = DS_CASES[case]
+    reqs = _mix(model.cfg.vocab_size, seed=2,
+                prefix_groups=[14] if case == "reuse==no_reuse" else None)
+    base, _ = _run(model, params, reqs, **base_kw)
+    got, rep = _run(model, params, reqs, **kw)
+    assert got == base
+    if case == "reuse==no_reuse":
+        assert rep.prefix_hits >= 1 and rep.reused_blocks >= 3
+
+
+def test_hierarchical_mixed_tiers_match_requests_run_alone(hier):
+    """Sub-level tiers (k' = 1 beside the default K_max = 2) co-batched in
+    overlapped paged steps: each request gets its stream served alone."""
+    model, params = hier
+    reqs = make_requests(4, model.cfg.vocab_size, prompt_range=(6, 10),
+                         gen_range=(3, 5), rate=0.0, seed=3,
+                         tiers=[1, None])
+    got, rep = _run(model, params, reqs, **PAGED, overlap=True)
+    assert rep.active_pairs < rep.padded_pairs
+    for r in reqs:
+        alone, _ = _run(model, params, [dataclasses.replace(r)])
+        assert got[r.rid] == alone[r.rid]
+
+
+def test_hierarchical_engine_matches_static_greedy_loop(hier):
+    """Staggered requests through 2 recycled slots on the converted model
+    reproduce each prompt's static prefill + decode loop token for
+    token."""
+    model, params = hier
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, prompt=rng.integers(0, model.cfg.vocab_size,
+                                               6 + 2 * i).tolist(),
+                    max_new=4, arrival=float(i)) for i in range(3)]
+    got, rep = _run(model, params, reqs, max_slots=2, max_len=24,
+                    overlap=True)
+    assert rep.slot_reuse >= 1
+    for r in reqs:
+        logits, cache = model.prefill(
+            params, {"tokens": torch.tensor([r.prompt])}, max_len=24)
+        toks = [int(torch.argmax(logits, -1))]
+        for i in range(r.max_new - 1):
+            logits, cache = model.decode_step(
+                params, torch.tensor([[toks[-1]]]), cache,
+                len(r.prompt) + i)
+            toks.append(int(torch.argmax(logits, -1)))
+        assert got[r.rid] == tuple(toks)
+
+
 @pytest.mark.parametrize("argv", [
-    ["--arch", "deepseek-v2-236b", "--smoke", "--cmoe", "S2A2E8"],
-    ["--arch", "deepseek-v2-236b", "--smoke", "--continuous"]])
-def test_cli_refuses_hierarchical_cmoe(argv):
-    """Hierarchical conversion (--cmoe on an MoE arch, the smoke engine's
-    implicit S2A2E8 included) is not ported and raises; it never serves
-    the unconverted experts under a conversion tag."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tserve.run(argv + ["--device", "cpu"])
+    ["--cmoe", "S2A2E8", "--batch", "2", "--gen", "3"],
+    ["--continuous", "--paged", "--parity", "--requests", "5", "--gen", "4",
+     "--prompt-len", "12", "--max-prefill-tokens", "8", "--block-size",
+     "8"]], ids=["static", "continuous"])
+def test_cli_converts_deepseek_hierarchically(argv):
+    """--cmoe on deepseek-v2 converts it hierarchically, and so does the
+    --smoke --continuous default (S2A2E8): the served model is the
+    converted one, on the hierarchical backend policy."""
+    res = tserve.run(["--smoke", "--arch", "deepseek-v2-236b", "--device",
+                      "cpu"] + argv)
+    assert res["convert_s"] > 0
+    if "--continuous" in argv:
+        model = res["engine"].model
+        assert res["parity"] == ["overlap == sequential",
+                                 "paged == contiguous"]
+        assert res["report"].dropped_pairs == 0
+        assert res["report"].pool_audit["ok"]
+    else:
+        model = res["model"]
+        assert np.asarray(res["tokens"]).shape == (2, 3)
+        assert res["backends"] == {"prefill": "grouped_plain",
+                                   "decode": "gather"}
+        assert "cmoe" in res["params"]["blocks"]
+    assert model.cfg.cmoe == CMoEConfig(num_experts=8, num_shared=2,
+                                        top_k=2)
 
 
 @pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
@@ -350,17 +442,6 @@ def test_cli_refuses_hierarchical_cmoe(argv):
 def test_unported_archs_still_raise(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tserve.run(["--arch", arch, "--smoke", "--device", "cpu"])
-
-
-def test_converted_moe_block_raises():
-    """A config that carries both an MoE and a CMoE spec (hierarchical)
-    is refused by the block, not served as the plain MoE."""
-    cfg = override(get_smoke_config("deepseek-v2-236b"), dtype="float32")
-    model = build_model(cfg.with_cmoe(CMoEConfig(**CM)), device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.prefill(params, {"tokens": torch.zeros((1, 4),
-                                                     dtype=torch.long)})
 
 
 @pytest.mark.parametrize("kw", [dict(paged=False),
