@@ -25,7 +25,9 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      a window that masks whole leading blocks, and on its split-KV core
      over views of several 256-key chunks: pos at and around the chunk
      edges, a window that kills the leading chunks, granite's 48 query
-     heads per kv head of 128, hd 256; both kernels with rows at pos -1,
+     heads per kv head of 128, hd 256, llama4's 5 query heads on 8 kv
+     heads of 128 (also timed at its engine's decode shape); both
+     kernels with rows at pos -1,
      every key masked: the view's mean; mla_paged_decode with each call
      checked to run the route mla_route names, bfloat16 at r 512 / dr 64
      on the tensor cores, 12 heads in a padded M tile and views of several
@@ -102,6 +104,22 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      plain versions and timed beside bounds that count live rows; then
      the engine (serve_continuous, the phase 4 engine flags) on the
      converted model, counts zeroed before and read after;
+     (e) llama4-maverick-400b-a17b at its published widths (40 query heads
+     on 8 kv heads of 128, 128 experts of 8192 top-1 with a shared expert,
+     dense layers of d_ff 8192, vocab 202048), bfloat16, cut to one period
+     (a dense and an MoE layer): the CLI's static path (prefill 4 x 64,
+     past the break-even of 128 tokens, so moe_gmm_ragged runs beside
+     swiglu_ffn and moe_gather; the reference logits), the device time of
+     its prefill and decode step by kernel, its three FFN kernels on the
+     inputs the path gives them against their plain versions and timed,
+     then the engine (phase 4's engine flags, paged_attn_decode at 5 query
+     heads a kv head); then the CLI's static path with --cmoe S3A3E8
+     (640 routed sub-experts of m' 1024, the dense layer left dense; the
+     peak device memory after init, conversion and serving), all 5 routed
+     sub-experts active against the reference logits (within
+     DS_HIER_ALL_ACTIVE_TOL of max|logit|), the same trace and FFN checks
+     as (d) on the converted MoE layer, and the engine; launch counts
+     zeroed before each of the four runs and read after;
   6. the SSM family at full published width and depth: (a) float32, for
      mamba2-370m and zamba2-1.2b, the kernel path against the plain path
      on one set of weights: Model.forward on 2 x 1024 tokens, then a 4 x 32
@@ -125,7 +143,7 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      and the step's post-RoPE query (BH 128, T 1100, pos 1024) against the
      plain version and decode_attention, both calls on the split-KV
      core (flash_decode.route); tolerances as in phase 2.
-The ``[routes]`` lines of phases 3a, 3b, 4, 5 (5a, path A, 5b, 5c) and 6
+The ``[routes]`` lines of phases 3a, 3b, 4, 5 (5a, path A, 5b-5e) and 6
 count which kernel each launch of the four FFN kernels and of
 mla_paged_decode ran: every bfloat16 launch on the tensor cores, every
 float32 one on the SIMT kernel (phase 7 checks half and half), or the run
@@ -239,6 +257,27 @@ DS_HIER_ARGS = ["--arch", DS_ARCH, "--layers", str(DS_HIER_LAYERS),
 # logits, relative to max|logit|: the same neurons, but the shared and
 # routed parts' outputs each rounded to bfloat16 before they are summed
 DS_HIER_ALL_ACTIVE_TOL = 3e-2
+# llama4-maverick-400b-a17b (phase 5e): published widths (d_model 5120, 40
+# query heads on 8 kv heads of 128, 128 experts of 8192 top-1 with a shared
+# expert of 8192, dense layers of d_ff 8192, vocab 202048), bfloat16, depth
+# cut to one period (a dense and an MoE layer; 32.2 GB of expert banks, the
+# conversion holds a copy of them). The static prefill is 4 x 64 tokens:
+# past the unconverted break-even E / k = 128 tokens, so moe_gmm_ragged
+# runs there as well as in the calibration forward; the converted model's
+# inner pass crosses its own (640 sub-experts at top-3) at any prefill
+L4_ARCH = "llama4-maverick-400b-a17b"
+L4_LAYERS = 2
+L4_PROMPT = 64
+L4_CMOE = "S3A3E8"
+L4_ARGS = ["--arch", L4_ARCH, "--layers", str(L4_LAYERS), "--batch",
+           str(BATCH), "--prompt-len", str(L4_PROMPT), "--gen", str(GEN),
+           "--seed", "0"]
+# paged_attn_decode at llama4's engine decode shape (5 query heads a kv head)
+PAGED_LLAMA4 = dict(rows=4, kh=8, grp=5, hd=128, bs=16, depth=80)
+# the most tiles of a routed kernel's layout held against the plain version
+# on llama4's banks (the plain version copies each tile's three expert
+# slabs to float32, 503 MB a tile unconverted)
+L4_CHECK_TILES = 24
 # mla_paged_decode at the engine's decode shape and at a long context
 # (r = kv_lora_rank, dr = qk_rope_head_dim, scale (dn + dr)^-0.5)
 MLA_MAIN = dict(rows=4, heads=128, r=512, dr=64, bs=16, depth=80)
@@ -703,12 +742,23 @@ def paged_attn_phase(g, dev) -> dict:
              at=[600, 300, 17, -1], what="granite group"),
         dict(rows=4, kh=2, grp=2, hd=256, bs=8, depth=520, window=0,
              at=[520, 256, 3, -1], what="hd 256")]
+    # llama4's grouping (8 kv heads of 128, 5 query heads each), on a
+    # generator of its own: rows sharing a lane and all-trash rows, and a
+    # view of several chunks
+    g_l4 = torch.Generator(device=dev)
+    g_l4.manual_seed(30)
+    l4_cases = [
+        dict(rows=6, kh=8, grp=5, hd=128, bs=16, depth=80, share=True,
+             trash_rows=2, window=0, what="llama4 group"),
+        dict(rows=4, kh=8, grp=5, hd=128, bs=16, depth=700, window=0,
+             at=[700, 256, 255, -1], what="llama4 group chunks")]
     for dt in (torch.float32, torch.bfloat16):
-        for c in cases + split_cases:
+        for c in cases + split_cases + l4_cases:
             c = dict(c)
             window = c.pop("window")
             tag = c.pop("what", "")
-            gen = g_split if tag else g
+            gen = (g_l4 if tag.startswith("llama4") else g_split) if tag \
+                else g
             q, kp, vp, table, pos = paged_case(gen, dev, dt, **c)
             sc = c["hd"] ** -0.5
             got = ops.paged_attn_decode(q, kp, vp, table=table, pos=pos,
@@ -720,8 +770,8 @@ def paged_attn_phase(g, dev) -> dict:
             real = c["rows"]
             if tag:
                 # each row against its own scale (the pos -1 row is the
-                # small mean of its view)
-                for i in range(real):
+                # small mean of its view; a trash row reads the poison)
+                for i in range(got.shape[0]):
                     check(f"paged_attn_decode {tag} grp={c['grp']} "
                           f"hd={c['hd']} depth={c['depth']} window={window} "
                           f"pos={int(pos[i])}", got[i], ref[i], dt)
@@ -734,13 +784,13 @@ def paged_attn_phase(g, dev) -> dict:
             if dt == torch.bfloat16:
                 err = max(err, e)
 
-    def timed(shape):
+    def timed(shape, gen=g):
         """Kernel and plain ms at `shape` (every row at depth), and the
         bound from the live K/V rows, q, out, table and pos."""
         item = 2                                     # bf16 bytes
 
         def one_set():
-            q, kp, vp, table, pos = paged_case(g, dev, torch.bfloat16,
+            q, kp, vp, table, pos = paged_case(gen, dev, torch.bfloat16,
                                                **shape)
             return [q, kp, vp, table, pos.fill_(shape["depth"])]
 
@@ -765,6 +815,10 @@ def paged_attn_phase(g, dev) -> dict:
 
     ms, g_ms, plain_ms, (b_ms, b_by) = timed(PAGED_MAIN)
     lms, lg_ms, lplain_ms, (lb_ms, lb_by) = timed(PAGED_LONG)
+    l4 = timed(PAGED_LLAMA4, g_l4)
+    print(f"[time] paged_attn_decode llama4 engine decode {PAGED_LLAMA4}: "
+          f"{l4[0]:.4f} ms ({l4[1]:.4f} ms in a CUDA graph; bound "
+          f"{l4[3][0]:.4f} ms, {l4[3][1]}), plain {l4[2]:.4f} ms")
     print(f"[time] paged_attn_decode engine decode {PAGED_MAIN}: {ms:.4f} "
           f"ms ({g_ms:.4f} ms in a CUDA graph; bound {b_ms:.4f} ms, "
           f"{b_by}), plain {plain_ms:.4f} ms")
@@ -785,7 +839,11 @@ def paged_attn_phase(g, dev) -> dict:
         long_context=dict(shape=" ".join(f"{k}={v}" for k, v in
                                          PAGED_LONG.items()),
                           ms=lms, graph_ms=lg_ms, plain_ms=lplain_ms,
-                          bound_ms=lb_ms, bound_by=lb_by))
+                          bound_ms=lb_ms, bound_by=lb_by),
+        llama4=dict(shape=" ".join(f"{k}={v}" for k, v in
+                                   PAGED_LLAMA4.items()),
+                    ms=l4[0], graph_ms=l4[1], plain_ms=l4[2],
+                    bound_ms=l4[3][0], bound_by=l4[3][1]))
 
 
 def mla_case(g, dev, dtype, *, rows, heads, r, dr, bs, depth, share=False,
@@ -2408,14 +2466,26 @@ def capture_call(name: str, call):
     return out, seen[0]
 
 
-def hierarchical_ffn_checks(model, params, records: dict) -> None:
-    """Phase 5d on layer 0 of the converted model: the hierarchical FFN
-    bitwise width-invariant (a token alone and among DS_MIXED_TOKENS, at
-    decode and on a fused step) and unchanged by re-aiming dead outer rows
-    at the sentinel; then moe_gmm_ragged (a 4 x 32 prefill) and moe_gather
-    (a 4-token decode) on the inputs the FFN gives them, against their
-    plain versions on the rows that carry data, and timed beside their
-    plain versions, the bmm chains and bounds that count live rows."""
+def live_bound(live_rows: int, x_rows: int, ids, d: int, m: int):
+    """Bound of a routed GLU FFN on the rows that carry data: each live
+    row's input and output once, each distinct live expert's slabs once
+    (bf16). Returns (distinct experts, (bound ms, bound by))."""
+    import torch
+    distinct = int(torch.unique(ids).numel())
+    nbytes = 2 * (3 * distinct * d * m + x_rows * d + live_rows * d)
+    return distinct, bound(6 * live_rows * d * m, nbytes, "bfloat16")
+
+
+def hierarchical_ffn_checks(model, p0, records: dict,
+                            key: str = "hierarchical") -> None:
+    """Phases 5d and 5e on the converted MoE layer whose block params are
+    p0: the hierarchical FFN bitwise width-invariant (a token alone and
+    among DS_MIXED_TOKENS, at decode and on a fused step) and unchanged by
+    re-aiming dead outer rows at the sentinel; then moe_gmm_ragged (a 4 x
+    32 prefill) and moe_gather (a 4-token decode) on the inputs the FFN
+    gives them, against their plain versions on the rows that carry data,
+    and timed beside their plain versions, the bmm chains and bounds that
+    count live rows. The records go under records[kernel][key]."""
     import torch
     import torch.nn.functional as F
 
@@ -2423,15 +2493,14 @@ def hierarchical_ffn_checks(model, params, records: dict) -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels.moe_gather import moe_gather_plain
     from repro_torch.kernels.moe_gmm import moe_gmm_ragged_plain
-    from repro_torch.models.model import tree_map
 
     cfg = model.cfg
     dev = torch.device("cuda")
     bf = torch.bfloat16
     g = torch.Generator(device=dev)
     g.manual_seed(5)
-    p0 = tree_map(lambda a: a[0], params["blocks"])
     d, k = cfg.d_model, cfg.cmoe.top_k
+    what = f"{cfg.name} hierarchical"
 
     def ffn(x, phase):
         return hier.hierarchical_moe_ffn(x, p0, cfg, use_kernel=True,
@@ -2442,8 +2511,8 @@ def hierarchical_ffn_checks(model, params, records: dict) -> None:
         full = ffn(x, phase)
         for r in (0, DS_MIXED_TOKENS // 2, DS_MIXED_TOKENS - 1):
             if not torch.equal(ffn(x[r:r + 1], phase)[0], full[r]):
-                raise AssertionError(f"hierarchical FFN ({phase}): token {r}"
-                                     f" alone differs from its row among "
+                raise AssertionError(f"{what} FFN ({phase}): token {r} "
+                                     f"alone differs from its row among "
                                      f"{DS_MIXED_TOKENS}")
     reaim = hier.dead_rows_to_sentinel
     hier.dead_rows_to_sentinel = lambda flat_sub, occ, sentinel: flat_sub
@@ -2454,18 +2523,11 @@ def hierarchical_ffn_checks(model, params, records: dict) -> None:
     if not torch.equal(kept, ffn(x[:BATCH], "decode")):
         raise AssertionError("re-aiming dead outer rows at the sentinel "
                              "changed the hierarchical FFN's output")
-    print(f"[invariance] hierarchical FFN ({cfg.cmoe.tag()}, layer 0, "
-          f"bf16): a token alone == its row among {DS_MIXED_TOKENS} at "
+    print(f"[invariance] {what} FFN ({cfg.cmoe.tag()}, the first MoE "
+          f"layer, bf16): a token alone == its row among {DS_MIXED_TOKENS} at "
           f"decode (moe_gather) and on a fused step (moe_gmm_ragged), "
           f"bitwise; dead outer rows re-aimed at the sentinel or not: "
           f"bitwise equal ({BATCH} decode tokens)")
-
-    def bound_live(live_rows, x_rows, ids, m):
-        """Bound of the FFN on the rows that carry data: each live row's
-        input and output once, each distinct live sub-expert's slabs once."""
-        distinct = int(torch.unique(ids).numel())
-        nbytes = 2 * (3 * distinct * d * m + x_rows * d + live_rows * d)
-        return distinct, bound(6 * live_rows * d * m, nbytes, "bfloat16")
 
     # moe_gmm_ragged at a 4 x 32 prefill
     xp = torch.randn((BATCH, PROMPT, d), generator=g, device=dev).to(bf)
@@ -2477,11 +2539,11 @@ def hierarchical_ffn_checks(model, params, records: dict) -> None:
                  lambda: ops.moe_gmm_ragged(*args, **kw))
     live = lay.abs().amax(dim=1) > 0                       # rows with data
     tiles = live.reshape(-1, block).any(dim=1)
-    err = check(f"moe_gmm_ragged hierarchical ({wg.shape[0]} sub-experts)",
+    err = check(f"moe_gmm_ragged {what} ({wg.shape[0]} sub-experts)",
                 got, moe_gmm_ragged_plain(*args, "swiglu", block), bf)
     n_live = int(live.sum())
-    distinct, (b_ms, b_by) = bound_live(
-        n_live, n_live, owner[tiles].long(), m)
+    distinct, (b_ms, b_by) = live_bound(
+        n_live, n_live, owner[tiles].long(), d, m)
 
     def chain(xp_, o, wg_, wu_, wd_):
         own = o.long()
@@ -2503,8 +2565,8 @@ def hierarchical_ffn_checks(model, params, records: dict) -> None:
     cut = int(tiles.nonzero().max()) + 1          # through the last live tile
     rec["live_tiles_ms"] = time_ms(
         kernel, [[lay[:cut * block], owner[:cut], wg, wu, wd]], iters=10)
-    records["moe_gmm_ragged"]["hierarchical"] = rec
-    print(f"[time] moe_gmm_ragged hierarchical prefill ({rec['shape']}): "
+    records["moe_gmm_ragged"][key] = rec
+    print(f"[time] moe_gmm_ragged {what} prefill ({rec['shape']}): "
           f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} in a CUDA graph), "
           f"through the last live tile {rec['live_tiles_ms']:.4f} ms, plain "
           f"{rec['plain_ms']:.4f} ms, chain {rec['library_ms']:.4f} ms, "
@@ -2522,15 +2584,15 @@ def hierarchical_ffn_checks(model, params, records: dict) -> None:
     tok = row_live.nonzero()[:, 0]                          # outer live rows
     sel = torch.cat([tok, (~row_live).nonzero()[:1, 0]])    # and a dead one
     sub_ids = ids.reshape(-1, k)[sel].reshape(-1)
-    err = check(f"moe_gather hierarchical ({n_sub} sub-experts, live outer "
+    err = check(f"moe_gather {what} ({n_sub} sub-experts, live outer "
                 f"rows)", got.reshape(-1, k, d)[sel].reshape(-1, d),
                 moe_gather_plain(xf[sel], sub_ids, wg, wu, wd, top_k=k), bf,
                 sentinel_rows=sub_ids == n_sub)
     if got[~live].abs().max() != 0:
         raise AssertionError("moe_gather: sentinel rows are not exactly zero")
     n_live = int(live.sum())
-    distinct, (b_ms, b_by) = bound_live(n_live, int(tok.numel()), ids[live],
-                                        wg.shape[2])
+    distinct, (b_ms, b_by) = live_bound(n_live, int(tok.numel()), ids[live],
+                                        d, wg.shape[2])
     kernel = lambda *a: ops.moe_gather(*a, top_k=k)  # noqa: E731
     sub = [xf[tok], ids.reshape(-1, k)[tok].reshape(-1), wg, wu, wd]
 
@@ -2551,8 +2613,8 @@ def hierarchical_ffn_checks(model, params, records: dict) -> None:
                plain_live_rows_ms=time_ms(
                    lambda *a: moe_gather_plain(*a, top_k=k), [sub], iters=3),
                library_live_rows_ms=time_ms(chain, [sub], iters=3))
-    records["moe_gather"]["hierarchical"] = rec
-    print(f"[time] moe_gather hierarchical decode ({rec['shape']}): "
+    records["moe_gather"][key] = rec
+    print(f"[time] moe_gather {what} decode ({rec['shape']}): "
           f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} in a CUDA graph); on "
           f"the live outer rows alone {rec['live_rows_ms']:.4f} ms, plain "
           f"{rec['plain_live_rows_ms']:.4f} ms, chain "
@@ -2613,23 +2675,23 @@ def conversion_cost() -> None:
           f"bitwise equal")
 
 
-def hierarchical_trace(model, params, prompts, host_ms: dict) -> None:
-    """Where a converted prefill (4 x 32) and a decode step (4 lanes) spend
-    the card's time: each CUDA kernel's device ms a call (torch.profiler),
-    their sum against the static path's host-timed ms, and the kernels
-    that take most of it."""
+def step_trace(model, params, prompts, host_ms: dict, what: str) -> None:
+    """Where a static prefill of `prompts` and a decode step (a lane each)
+    spend the card's time: each CUDA kernel's device ms a call
+    (torch.profiler), their sum against the static path's host-timed ms,
+    and the kernels that take most of it."""
     import torch
-    _, cache = model.prefill(params, {"tokens": prompts},
-                             max_len=PROMPT + GEN)
+    seq = prompts.shape[1]
+    _, cache = model.prefill(params, {"tokens": prompts}, max_len=seq + GEN)
     tok = prompts[:, -1:]
     calls = {"prefill": lambda: model.prefill(params, {"tokens": prompts}),
-             "decode": lambda: model.decode_step(params, tok, cache, PROMPT)}
+             "decode": lambda: model.decode_step(params, tok, cache, seq)}
     for phase, fn in calls.items():
         per = kernel_ms(fn, [[]], calls=3)
         busy = sum(per.values())
         top = ", ".join(f"{name.strip()} {ms:.3f}" for name, ms in
                         sorted(per.items(), key=lambda kv: -kv[1])[:6])
-        print(f"[trace] hierarchical {phase}: {busy:.2f} ms of device time "
+        print(f"[trace] {what} {phase}: {busy:.2f} ms of device time "
               f"a call against {host_ms[phase]:.2f} ms on the host's clock "
               f"(idle share {max(0.0, 1 - busy / host_ms[phase]):.2f}); "
               f"most: {top}")
@@ -2652,6 +2714,7 @@ def deepseek_hierarchical(records: dict) -> tuple[dict, dict]:
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import build_model
+    from repro_torch.models.model import tree_map
 
     print(f"[cut] {DS_ARCH} hierarchical {DS_HIER_CMOE}: depth 60 -> "
           f"{DS_HIER_LAYERS} layers (phase 5d, bfloat16; every width as "
@@ -2730,8 +2793,174 @@ def deepseek_hierarchical(records: dict) -> tuple[dict, dict]:
           f"{int((logits.argmax(-1) == ref_logits.argmax(-1)).sum())}/"
           f"{BATCH}")
     del m_all
-    hierarchical_trace(model, params, prompts, host_ms)
-    hierarchical_ffn_checks(model, params, records)
+    step_trace(model, params, prompts, host_ms, "hierarchical")
+    hierarchical_ffn_checks(
+        model, tree_map(lambda a: a[0], params["blocks"]), records)
+
+    engine = engine_run(model, params, "deepseek hierarchical", "5d",
+                        ("mla_paged_decode", "moe_gmm_ragged", "moe_gather"))
+    return static, engine
+
+
+def llama4_ffn_checks(model, params, records: dict) -> None:
+    """Phase 5e on the unconverted model: its three FFN kernels on the
+    inputs the path gives them, captured from a 4 x L4_PROMPT prefill
+    (swiglu_ffn in the dense layer, moe_gmm_ragged past the break-even)
+    and a 4-lane decode step (moe_gather), each against its plain version
+    and timed beside a chain of PyTorch calls and a bound. The plain
+    version copies each layout tile's expert slabs in float32, so
+    moe_gmm_ragged is held to it on L4_CHECK_TILES live tiles spread over
+    the layout (a tile's rows depend on that tile alone); the subset is
+    timed on all three. The records go under records[kernel]["llama4"]."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gather import moe_gather_plain
+    from repro_torch.kernels.moe_gmm import moe_gmm_ragged_plain
+    from repro_torch.kernels.swiglu import swiglu_ffn_plain
+
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    d = cfg.d_model
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, L4_PROMPT),
+                            generator=g, device=dev)
+
+    def prefill():
+        return model.prefill(params, {"tokens": prompts})
+
+    def glu_chain(x, wg, wu, wd):
+        return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+    # swiglu_ffn: the dense layer's FFN at the prefill (T 256)
+    _, (args, kw) = capture_call("swiglu_ffn", prefill)
+    x, wg, wu, wd = args
+    args = [x.reshape(-1, d), wg, wu, wd]
+    t, f = args[0].shape[0], wg.shape[1]
+    got = routed("swiglu_ffn", "tensor_core",
+                 lambda: ops.swiglu_ffn(*args, **kw))
+    err = check(f"swiglu_ffn {cfg.name} dense layer (T={t} d={d} f={f})",
+                got, swiglu_ffn_plain(*args, cfg.activation), bf)
+    b_ms, b_by = bound(6 * t * d * f, 2 * (3 * d * f + 2 * t * d),
+                       "bfloat16")
+    rec = dict(shape=f"T={t} d={d} f={f}", max_abs_err=err, bound_ms=b_ms,
+               bound_by=b_by,
+               ms=time_ms(lambda *a: ops.swiglu_ffn(*a, **kw), [args],
+                          iters=20),
+               plain_ms=time_ms(lambda *a: swiglu_ffn_plain(
+                   *a, cfg.activation), [args], iters=3),
+               library_ms=time_ms(glu_chain, [args], iters=10))
+    records["swiglu_ffn"]["llama4"] = rec
+    print(f"[time] swiglu_ffn {cfg.name} dense prefill ({rec['shape']}): "
+          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, chain "
+          f"{rec['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    # moe_gmm_ragged: the MoE layer's routed experts at the prefill
+    _, (args, kw) = capture_call("moe_gmm_ragged", prefill)
+    lay, owner, wg, wu, wd = args
+    block = kw["block_c"]
+    m = wg.shape[2]
+    got = routed("moe_gmm_ragged", "tensor_core",
+                 lambda: ops.moe_gmm_ragged(*args, **kw))
+    live = lay.abs().amax(dim=1) > 0
+    tiles = live.reshape(-1, block).any(dim=1)
+    live_tiles = tiles.nonzero()[:, 0]
+    pick = live_tiles[torch.linspace(
+        0, live_tiles.numel() - 1, min(L4_CHECK_TILES, live_tiles.numel()),
+        device=dev).long()]
+    rows = (pick[:, None] * block +
+            torch.arange(block, device=dev)[None, :]).reshape(-1)
+    sub = [lay[rows].contiguous(), owner[pick].contiguous(), wg, wu, wd]
+    err = check(f"moe_gmm_ragged {cfg.name} ({wg.shape[0]} experts, "
+                f"{pick.numel()} live tiles of {tiles.numel()})", got[rows],
+                moe_gmm_ragged_plain(*sub, **kw), bf)
+    n_live = int(live.sum())
+    distinct, (b_ms, b_by) = live_bound(n_live, n_live,
+                                        owner[tiles].long(), d, m)
+
+    def tile_chain(xp_, o, wg_, wu_, wd_):
+        own = o.long()
+        xb = xp_.reshape(-1, block, d)
+        h = F.silu(torch.bmm(xb, wg_[own])) * torch.bmm(xb, wu_[own])
+        return torch.bmm(h, wd_[own])
+
+    kernel = lambda *a: ops.moe_gmm_ragged(*a, **kw)  # noqa: E731
+    cut = int(live_tiles.max()) + 1               # through the last live tile
+    rec = dict(shape=f"P={lay.shape[0]} live rows={n_live} in "
+                     f"{int(tiles.sum())} of {tiles.numel()} tiles, "
+                     f"E={wg.shape[0]} d={d} m={m} distinct live "
+                     f"experts={distinct}",
+               max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+               ms=time_ms(kernel, [args], iters=10),
+               live_tiles_ms=time_ms(kernel, [[lay[:cut * block],
+                                               owner[:cut], wg, wu, wd]],
+                                     iters=10),
+               subset=f"{pick.numel()} live tiles",
+               subset_ms=time_ms(kernel, [sub], iters=10),
+               plain_subset_ms=time_ms(lambda *a: moe_gmm_ragged_plain(
+                   *a, **kw), [sub], iters=3),
+               library_subset_ms=time_ms(tile_chain, [sub], iters=3))
+    records["moe_gmm_ragged"]["llama4"] = rec
+    print(f"[time] moe_gmm_ragged {cfg.name} prefill ({rec['shape']}): "
+          f"{rec['ms']:.4f} ms, through the last live tile "
+          f"{rec['live_tiles_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); on "
+          f"{rec['subset']}: {rec['subset_ms']:.4f} ms, plain "
+          f"{rec['plain_subset_ms']:.4f} ms, chain "
+          f"{rec['library_subset_ms']:.4f} ms")
+
+    # moe_gather: the MoE layer's routed experts at a decode step
+    _, cache = model.prefill(params, {"tokens": prompts},
+                             max_len=L4_PROMPT + 1)
+    _, (args, kw) = capture_call("moe_gather", lambda: model.decode_step(
+        params, prompts[:, -1:], cache, L4_PROMPT))
+    del cache
+    xf, ids, wg, wu, wd = args
+    got = routed("moe_gather", "tensor_core",
+                 lambda: ops.moe_gather(*args, **kw))
+    dead = ids >= wg.shape[0]
+    err = check(f"moe_gather {cfg.name} ({ids.numel()} rows, "
+                f"{wg.shape[0]} experts)", got,
+                moe_gather_plain(*args, **kw), bf,
+                sentinel_rows=dead if bool(dead.any()) else None)
+    n_live = int((~dead).sum())
+    distinct, (b_ms, b_by) = live_bound(n_live, xf.shape[0], ids[~dead], d,
+                                        m)
+
+    def row_chain(xf_, i, wg_, wu_, wd_):
+        i = i.long().clamp(max=wg_.shape[0] - 1)
+        xr = xf_.repeat_interleave(kw["top_k"], dim=0)[:, None]
+        h = F.silu(torch.bmm(xr, wg_[i])) * torch.bmm(xr, wu_[i])
+        return torch.bmm(h, wd_[i])[:, 0]
+
+    rec = dict(shape=f"rows={ids.numel()} live={n_live} E={wg.shape[0]} "
+                     f"d={d} m={m} distinct live experts={distinct}",
+               max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+               ms=time_ms(lambda *a: ops.moe_gather(*a, **kw), [args],
+                          iters=20),
+               graph_ms=graph_ms(lambda *a: ops.moe_gather(*a, **kw),
+                                 [args], iters=20),
+               plain_ms=time_ms(lambda *a: moe_gather_plain(*a, **kw),
+                                [args], iters=5),
+               library_ms=time_ms(row_chain, [args], iters=5))
+    records["moe_gather"]["llama4"] = rec
+    print(f"[time] moe_gather {cfg.name} decode ({rec['shape']}): "
+          f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} in a CUDA graph), "
+          f"plain {rec['plain_ms']:.4f} ms, chain {rec['library_ms']:.4f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by})")
+
+
+def engine_run(model, params, tag: str, phase: str, want: tuple) -> dict:
+    """The engine (serve_continuous with phase 4's engine flags) on
+    `model`, counts zeroed before and read after: every request done,
+    both parity replays, no dropped pair, a clean audit, and each kernel
+    of `want` launched. Returns the launch counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
 
     args = serve.parser().parse_args(
         ENGINE_ARGS[ENGINE_ARGS.index("--continuous"):])
@@ -2739,31 +2968,157 @@ def deepseek_hierarchical(records: dict) -> tuple[dict, dict]:
     ops.reset_launches()
     res = serve.serve_continuous(model, params, args)
     torch.cuda.synchronize()
-    engine = dict(ops.LAUNCHES)
+    launches = dict(ops.LAUNCHES)
     rep = res["report"]
     if res["parity"] != ["overlap == sequential", "paged == contiguous"]:
-        raise AssertionError(f"hierarchical engine parity replays "
-                             f"{res['parity']}")
+        raise AssertionError(f"{tag} engine parity replays {res['parity']}")
     if not all(r.done for r in rep.requests) or rep.dropped_pairs or \
             not rep.pool_audit.get("ok") or rep.pool_audit.get("allocated"):
-        raise AssertionError(f"hierarchical engine: unfinished requests, "
-                             f"drops or a bad audit {rep.pool_audit}")
-    for name in ("mla_paged_decode", "moe_gmm_ragged", "moe_gather"):
-        if engine[name] <= 0:
+        raise AssertionError(f"{tag} engine: unfinished requests, drops or "
+                             f"a bad audit {rep.pool_audit}")
+    for name in want:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"hierarchical engine's path")
+                                 f"{tag} engine's path")
     bc = {ph: dict(c) for ph, c in rep.backend_counts.items()}
-    print(f"[e2e deepseek hierarchical engine] {rep.num_requests} requests,"
-          f" {rep.total_new_tokens} tokens in {rep.steps} steps, wall "
+    print(f"[e2e {tag} engine] {rep.num_requests} requests, "
+          f"{rep.total_new_tokens} tokens in {rep.steps} steps, wall "
           f"{rep.wall_s:.3f} s, goodput {rep.goodput:.1f} tok/s, TTFT "
           f"p50/p95 {rep.ttft_p50_s * 1e3:.1f}/{rep.ttft_p95_s * 1e3:.1f} "
           f"ms, TPOT p50/p95 {rep.tpot_p50_s * 1e3:.2f}/"
           f"{rep.tpot_p95_s * 1e3:.2f} ms, overlap occupancy "
           f"{rep.overlap_occupancy:.3f}, backends {bc}, audit "
-          f"{rep.pool_audit}, parity {res['parity']}, launches {engine}, "
+          f"{rep.pool_audit}, parity {res['parity']}, launches {launches}, "
           f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-    kernel_routes("phase 5d hierarchical engine bf16", "tensor_core")
-    return static, engine
+    kernel_routes(f"phase {phase} {tag} engine bf16", "tensor_core")
+    return launches
+
+
+def llama4_static(argv: list, tag: str) -> tuple[dict, dict]:
+    """serve.run(argv) with the peak and the launch counts zeroed before
+    and read after; checks its tokens, logits and backends. Returns (its
+    result, the launch counts)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = serve.run(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    toks = torch.as_tensor(res["tokens"])
+    vocab = res["model"].cfg.vocab_size
+    if toks.shape != (BATCH, GEN) or toks.min() < 0 or \
+            toks.max() >= vocab or \
+            not torch.isfinite(res["prefill_logits"]).all():
+        raise AssertionError(f"bad {tag} serve output: tokens "
+                             f"{tuple(toks.shape)}")
+    if res["backends"] != {"prefill": "grouped_kernel", "decode": "gather"}:
+        raise AssertionError(f"{tag} backends per phase: {res['backends']}")
+    for name in ("swiglu_ffn", "moe_gmm_ragged", "moe_gather"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{tag} static path: {launches}")
+    convert = "" if "convert_s" not in res else (
+        f"convert {res['convert_s']:.2f} s (profile "
+        f"{res['convert_profile_s']:.2f} s, cluster "
+        f"{res['convert_cluster_s']:.2f} s), ")
+    peaks = ", ".join(f"{k} {v:.2f}" for k, v in res["peak_gb"].items())
+    print(f"[e2e {tag}] static: {convert}prefill {res['prefill_ms']:.2f} ms "
+          f"({BATCH}x{L4_PROMPT}, median of {serve.PREFILL_REPEATS} warm), "
+          f"decode {res['decode_tok_s']:.1f} tok/s ({BATCH} lanes, "
+          f"{GEN - 1} steps), peak GB after {peaks}, launches {launches}")
+    kernel_routes(f"phase 5e {tag} static bf16", "tensor_core")
+    return res, launches
+
+
+def llama4_phase(records: dict) -> dict:
+    """Phase 5e: llama4-maverick-400b-a17b at full width, bfloat16, one
+    period (L4_LAYERS), through the CLI's entry points: unconverted static
+    (the reference logits), its FFN kernels on their own inputs, the
+    device time of a prefill and a decode step, the engine; then converted
+    to L4_CMOE once through the static entry point, all-active exactness,
+    the same for the converted model, and its engine. Returns the launch
+    counts of the four runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_map
+
+    base = get_config(L4_ARCH)
+    print(f"[cut] {L4_ARCH}: depth {base.num_layers} -> {L4_LAYERS} layers "
+          f"(phase 5e, bfloat16: one dense and one MoE layer); every width "
+          f"as published (d_model {base.d_model}, {base.num_heads} heads "
+          f"on {base.num_kv_heads} kv heads of {base.resolved_head_dim}, "
+          f"{base.moe.num_experts} experts of {base.moe.d_expert} top-"
+          f"{base.moe.top_k} + {base.moe.num_shared} shared, d_ff "
+          f"{base.d_ff}, vocab {base.vocab_size}); prefill {BATCH}x"
+          f"{L4_PROMPT}, past the break-even of "
+          f"{base.moe.num_experts // base.moe.top_k} tokens")
+    free_device("phase 5e")
+    launches = {}
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.vocab_size, (BATCH, L4_PROMPT)), dtype=torch.long,
+        device="cuda")
+    res, launches["static"] = llama4_static(L4_ARGS, "llama4")
+    ref_logits = res["prefill_logits"]          # on the host
+    model, params = res["model"], res["params"]
+    host_ms = {"prefill": res["prefill_ms"],
+               "decode": 1e3 * BATCH / res["decode_tok_s"]}
+    del res
+    step_trace(model, params, prompts, host_ms, "llama4")
+    llama4_ffn_checks(model, params, records)
+    launches["engine"] = engine_run(
+        model, params, "llama4", "5e",
+        ("swiglu_ffn", "moe_gather", "paged_attn_decode"))
+    del model, params
+    free_device("phase 5e's conversion")
+
+    res, launches["hierarchical_static"] = llama4_static(
+        L4_ARGS + ["--cmoe", L4_CMOE], "llama4 hierarchical")
+    model, params = res["model"], res["params"]
+    host_ms = {"prefill": res["prefill_ms"],
+               "decode": 1e3 * BATCH / res["decode_tok_s"]}
+    agree = int((res["prefill_logits"].argmax(-1) ==
+                 ref_logits.argmax(-1)).sum())
+    print(f"[e2e llama4 hierarchical] first greedy token as unconverted "
+          f"{agree}/{BATCH}")
+    del res
+    cm = model.cfg.cmoe
+    m_all = build_model(model.cfg.with_cmoe(dataclasses.replace(
+        cm, top_k=cm.num_routed)), use_kernel=True, device="cuda")
+    logits = m_all.prefill(params, {"tokens": prompts})[0].float().cpu()
+    err = (logits - ref_logits).abs().max().item()
+    scale = ref_logits.abs().max().item()
+    if not (torch.isfinite(logits).all() and
+            err <= DS_HIER_ALL_ACTIVE_TOL * scale):
+        raise AssertionError(f"llama4 all-active conversion: max|err| "
+                             f"{err:.3e} > {DS_HIER_ALL_ACTIVE_TOL} x "
+                             f"max|logit| {scale:.3e}")
+    print(f"[e2e llama4 hierarchical] all {cm.num_routed} routed "
+          f"sub-experts active vs the unconverted model, prefill logits "
+          f"{BATCH}x{L4_PROMPT}: max|err| / max|logit| {err / scale:.3e} "
+          f"(tol {DS_HIER_ALL_ACTIVE_TOL}), greedy tokens agree "
+          f"{int((logits.argmax(-1) == ref_logits.argmax(-1)).sum())}/"
+          f"{BATCH}")
+    del m_all, logits
+    step_trace(model, params, prompts, host_ms, "llama4 hierarchical")
+    hierarchical_ffn_checks(
+        model, tree_map(lambda a: a[0], params["blocks_moe"]), records,
+        key="llama4_hierarchical")
+    launches["hierarchical_engine"] = engine_run(
+        model, params, "llama4 hierarchical", "5e",
+        ("swiglu_ffn", "moe_gmm_ragged", "moe_gather", "paged_attn_decode"))
+    del model, params
+    free_device("the phases after 5e")
+    return launches
 
 
 def free_device(what: str) -> None:
@@ -3173,6 +3528,11 @@ def main(argv=None) -> int:
         records[name]["launches_hierarchical_static"] = static[name]
     for name in ("moe_gmm_ragged", "moe_gather", "mla_paged_decode"):
         records[name]["launches_hierarchical"] = engine[name]
+    # phase 5e: llama4 at full width, one period, unconverted and converted
+    for run, counts in llama4_phase(records).items():
+        for name in ("swiglu_ffn", "moe_gmm_ragged", "moe_gather",
+                     "paged_attn_decode"):
+            records[name][f"launches_llama4_{run}"] = counts[name]
 
     # phase 6: mamba2-370m and zamba2-1.2b at full width and depth
     for arch in SSM_ARCHS:

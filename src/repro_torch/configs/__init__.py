@@ -1,9 +1,9 @@
 """Architecture registry. Each module exposes config() and smoke_config().
 
 The port lists every arch of the JAX package, but only the dense GQA
-SwiGLU family, deepseek-v2's MLA + pretrained MoE, and the Mamba2 SSM and
-zamba2 hybrid families run here so far; the others raise until their slice
-lands.
+SwiGLU family, deepseek-v2's MLA + pretrained MoE, llama4's interleaved
+dense / GQA-MoE stack, and the Mamba2 SSM and zamba2 hybrid families run
+here so far; the others raise until their slice lands.
 """
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ ARCHS = {
     "llama2-7b": "llama2_7b",
     # multi-head latent attention + the pretrained top-6-of-160 MoE
     "deepseek-v2-236b": "deepseek_v2_236b",
+    # dense and GQA + MoE (128 experts top-1, 1 shared) layers interleaved
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     # attention-free Mamba2 (SSD) and the Mamba2 + shared-attention hybrid
     "mamba2-370m": "mamba2_370m",
     "zamba2-1.2b": "zamba2_1_2b",
@@ -25,8 +27,8 @@ ARCHS = {
 
 # archs of the JAX package whose families the port does not run yet
 NOT_PORTED = (
-    "llama4-maverick-400b-a17b", "granite-34b",
-    "gemma3-4b", "phi3-medium-14b", "whisper-small", "internvl2-26b",
+    "granite-34b", "gemma3-4b", "phi3-medium-14b", "whisper-small",
+    "internvl2-26b",
 )
 
 

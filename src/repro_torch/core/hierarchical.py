@@ -1,5 +1,5 @@
 """Hierarchical application to existing MoE models (paper §4.4, Eq. 10).
-Port of ``repro/core/hierarchical.py`` (its non-interleaved stacks).
+Port of ``repro/core/hierarchical.py``.
 
 Each routed expert E_i is restructured into shared + routed SUB-experts
 with its own analytical sub-router. At runtime the two-level routing is
@@ -18,7 +18,8 @@ Param layout on a converted MoE block:
      "router": {wg_r,wu_r}: (E, d, N_r'),
      "u", "bias": (E, N_r'),
   }
-(each leaf stacked over layers as (L, ...)).
+(each leaf stacked over the MoE layers as (L, ...); an interleaved stack,
+llama4's, converts its ``blocks_moe`` and keeps its dense layers dense).
 """
 from __future__ import annotations
 
@@ -117,19 +118,20 @@ def convert_moe_model(model: Model, params: dict, calib_batch: dict,
     by layer: the originals of layer l are copied out (one layer's banks),
     converted, and written back over their own region, so the peak is the
     model plus one layer's banks. ``params`` gives up its expert banks:
-    they are removed from its ``blocks["moe"]``."""
+    they are removed from its ``blocks["moe"]`` (``blocks_moe["moe"]`` for
+    an interleaved stack, whose MoE layers are the ones converted)."""
     cfg = model.cfg
     assert cfg.family == "moe", cfg.family
-    if "blocks_moe" in params:
-        raise NotImplementedError(
-            "hierarchical conversion of an interleaved MoE stack "
-            "(llama4) is not ported yet")
     t0 = time.perf_counter()
     taps = model.ffn_inputs(params, calib_batch)            # (L, B, S, d)
+    interleaved = isinstance(taps, dict)
+    if interleaved:
+        taps = taps["moe"]
     lyr, b, s, d = taps.shape
     x_all = taps.reshape(lyr, b * s, d)
 
-    blocks = params["blocks"]
+    key = "blocks_moe" if interleaved else "blocks"
+    blocks = params[key]
     moe = blocks["moe"]
     banks = {n: moe.pop(n).contiguous() for n in BANKS}
     e, _, m = banks["wg"].shape[1:]
@@ -169,7 +171,7 @@ def convert_moe_model(model: Model, params: dict, calib_batch: dict,
     new_blocks = {k: v for k, v in blocks.items() if k != "moe"}
     new_blocks["moe"] = new_moe
     new_blocks["cmoe"] = cmoe
-    new_params = {**params, "blocks": new_blocks}
+    new_params = {**params, key: new_blocks}
     new_model = build_model(cfg.with_cmoe(cm), use_kernel=model.use_kernel,
                             backend=model.backend, device=model.device)
     if x_all.is_cuda:

@@ -1,7 +1,8 @@
 """Serving CLI: build a model from a seed (a dense decoder, optionally
-converted to CMoE on a synthetic calibration batch, deepseek-v2's MLA +
-pretrained MoE as it stands or hierarchically converted, or a Mamba2 /
-zamba2 model), then serve. Port of ``repro/launch/serve.py``.
+converted to CMoE on a synthetic calibration batch, llama4's interleaved
+dense / GQA-MoE stack or deepseek-v2's MLA + pretrained MoE, each as it
+stands or hierarchically converted, or a Mamba2 / zamba2 model), then
+serve. Port of ``repro/launch/serve.py``.
 
 Static mode (default): one prefill and a greedy (or temperature) decode
 loop. ``--continuous``: the continuous-batching engine
@@ -15,9 +16,10 @@ Runs on the GPU (``cuda``) unless ``--device cpu`` is given, and raises when
 no GPU is present and the CPU was not asked for. ``--use-kernel`` defaults
 to on exactly on CUDA; ``--no-use-kernel`` runs the plain PyTorch path.
 ``--layers N`` cuts the depth (widths stay as published) so that a large
-arch fits one card. ``--cmoe`` on an MoE arch converts it hierarchically
-(``core.hierarchical``: each routed expert split into shared and routed
-sub-experts), after the ``--layers`` cut; the ``--smoke --continuous``
+arch fits one card; llama4's must stay a whole number of periods (one
+dense and one MoE layer). ``--cmoe`` on an MoE arch converts it
+hierarchically (``core.hierarchical``: each routed expert split into
+shared and routed sub-experts), after the ``--layers`` cut; the ``--smoke --continuous``
 default (``--cmoe S2A2E8``) does so too, and ``--tier`` then sets the
 sub-level k.
 The SSM and hybrid archs (mamba2-370m, zamba2-1.2b) serve statically only,
@@ -28,6 +30,8 @@ as in the reference: ``--cmoe`` (conversion does not apply to them) and
     python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 4
     python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 2 \
         --cmoe S3A3E8
+    python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \
+        --layers 2 --cmoe S3A3E8 --continuous --paged --parity
     python -m repro_torch.launch.serve --arch mamba2-370m
     python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
     python -m repro_torch.launch.serve --smoke --cmoe S3A3E8 --device cpu
@@ -77,6 +81,16 @@ def parse_sxayez(tag: str) -> CMoEConfig:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _note_peak(result: dict, device: torch.device, stage: str) -> None:
+    """On CUDA, record and print the device's peak allocation so far (since
+    the caller's last ``reset_peak_memory_stats``) after `stage`."""
+    if device.type != "cuda":
+        return
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    result.setdefault("peak_gb", {})[stage] = peak
+    print(f"[memory] peak {peak:.2f} GB after {stage}")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -164,7 +178,9 @@ def run(argv=None) -> dict:
     decode_tok_s, tokens (B, gen), backends per phase, conversion seconds,
     and per-backend decode tok/s for 'all'; and the served (converted)
     model and params, so a caller can run them further without converting
-    again. In --continuous mode, serve_continuous's dict instead."""
+    again. In --continuous mode, serve_continuous's dict instead. On CUDA
+    also peak_gb: the device's peak allocation after init, conversion and
+    serving."""
     args = parser().parse_args(argv)
     if args.capacity_factor is not None:
         raise NotImplementedError(
@@ -204,6 +220,7 @@ def run(argv=None) -> dict:
     gen.manual_seed(args.seed)
     params = model.init(gen)
     result: dict = {"device": str(device), "use_kernel": use_kernel}
+    _note_peak(result, device, "init")
 
     if args.cmoe:
         cm = parse_sxayez(args.cmoe)
@@ -222,6 +239,7 @@ def run(argv=None) -> dict:
             model, params, report = convert_dense_model(model, params,
                                                         calib, cm)
         _sync(device)
+        _note_peak(result, device, "conversion")
         result["convert_s"] = report.seconds_total
         result["convert_profile_s"] = report.seconds_profile
         result["convert_cluster_s"] = report.seconds_cluster
@@ -235,6 +253,7 @@ def run(argv=None) -> dict:
             print("[continuous] note: --backend all is a static-mode "
                   "feature; the engine runs the auto phase policy")
         result.update(serve_continuous(model, params, args))
+        _note_peak(result, device, "serving")
         return result
 
     rng = np.random.default_rng(args.seed)
@@ -298,6 +317,7 @@ def run(argv=None) -> dict:
                   decode_s=t_decode, tokens=out.tolist(),
                   prefill_logits=logits.float().cpu(), model=model,
                   params=params)
+    _note_peak(result, device, "serving")
     tag = model.backend or "auto"
     print(f"prefill: {t_prefill * 1e3:.1f} ms for "
           f"{args.batch}x{args.prompt_len} tokens (median of "

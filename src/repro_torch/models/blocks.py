@@ -1,6 +1,7 @@
 """Decoder blocks: the dense block (GQA attention + the dense FFN or the
-converted CMoE FFN), deepseek-v2's block (MLA + the pretrained MoE) and
-the Mamba2 block. Port of the dense, mla_moe and mamba families of
+converted CMoE FFN), llama4's MoE block (GQA + the pretrained MoE),
+deepseek-v2's block (MLA + the pretrained MoE) and the Mamba2 block. Port
+of the dense, moe, mla_moe and mamba families of
 ``repro/models/blocks.py``.
 
 Parameters keep the JAX layout (nested dicts, the same keys), so weights
@@ -125,7 +126,8 @@ def init_dense_block(cfg, dtype, device, generator) -> dict:
     p = {"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
          "attn": init_attn(cfg, dtype, device, generator),
          "norm2": torch.zeros((cfg.d_model,), dtype=dtype, device=device)}
-    if cfg.cmoe is not None:
+    # a converted MoE model (llama4) keeps its dense layers dense
+    if cfg.cmoe is not None and cfg.family in ("dense", "vlm", "audio"):
         p["cmoe"] = init_cmoe_ffn(cfg, dtype, device, generator)
     else:
         p["ffn"] = init_ffn(cfg, dtype, device, generator)
@@ -180,7 +182,7 @@ def dense_block(x: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
     return x + y, new_kv, aux
 
 
-# ------------------------------------------------------------ MLA + MoE
+# ------------------------------------------------------------ MoE
 
 def _apply_moe(ffn_in: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
     """The pretrained MoE on one device (the reference's mesh-local
@@ -204,6 +206,32 @@ def _apply_moe(ffn_in: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
                    backend=ctx.backend, phase=ctx.phase,
                    valid=_token_valid_flat(ctx))
 
+
+def init_moe_block(cfg, dtype, device, generator) -> dict:
+    """llama4's MoE layer: GQA attention and the pretrained MoE."""
+    from repro_torch.models.moe import init_moe_ffn
+    return {"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+            "attn": init_attn(cfg, dtype, device, generator),
+            "norm2": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+            "moe": init_moe_ffn(cfg, dtype, device, generator)}
+
+
+def moe_block(x: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
+    h, new_kv = gqa_attention(
+        rms_norm(x, p["norm1"], cfg.norm_eps), p["attn"], cfg,
+        positions=ctx.positions, causal=ctx.causal, window=ctx.window,
+        kv_cache=ctx.cache, cache_pos=ctx.cache_pos,
+        block_table=ctx.block_table, row_slots=ctx.row_slots,
+        use_kernel=ctx.use_kernel)
+    x = x + h
+    ffn_in = rms_norm(x, p["norm2"], cfg.norm_eps)
+    y, aux = _apply_moe(ffn_in, p, cfg, ctx)
+    if ctx.capture:
+        aux = {**aux, "ffn_in": ffn_in}
+    return x + y, new_kv, aux
+
+
+# ------------------------------------------------------------ MLA + MoE
 
 def init_mla_moe_block(cfg, dtype, device, generator) -> dict:
     from repro_torch.models.moe import init_moe_ffn
@@ -245,14 +273,15 @@ def mamba_block(x: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
 
 BLOCKS = {
     "dense": (init_dense_block, dense_block),
+    "moe": (init_moe_block, moe_block),
     "mla_moe": (init_mla_moe_block, mla_moe_block),
     "mamba": (init_mamba_block, mamba_block),
 }
 
 
 def block_kind(cfg) -> str:
-    """The reference's block families; the port runs "dense", "mla_moe"
-    and "mamba"."""
+    """The reference's block families; the port runs "dense", "moe",
+    "mla_moe" and "mamba"."""
     if cfg.family == "moe":
         return "mla_moe" if cfg.mla is not None else "moe"
     if cfg.family in ("ssm", "hybrid"):

@@ -1,19 +1,24 @@
-"""Model facade for the dense decoder family, deepseek-v2 (MLA + the
-pretrained MoE, or its hierarchical CMoE conversion), Mamba2 (SSM) and the
-zamba2 hybrid.
+"""Model facade for the dense decoder family, llama4 (dense and GQA + MoE
+layers interleaved, the MoE pretrained or hierarchically converted),
+deepseek-v2 (MLA + the pretrained MoE, or its hierarchical CMoE
+conversion), Mamba2 (SSM) and the zamba2 hybrid.
 
-Port of the dense, mla_moe, ssm and hybrid paths of
+Port of the dense, moe, mla_moe, ssm and hybrid paths of
 ``repro/models/model.py``. Parameters are nested dicts of tensors in the
-JAX layout: block leaves are stacked over layers as (L, ...), and the
+JAX layout: block leaves are stacked over layers as (L, ...) (llama4: a
+``blocks_dense`` and a ``blocks_moe`` stack of L/2 layers each), and the
 reference's ``lax.scan`` over that stack becomes a Python loop over
 layers. Caches are (k, v) tuples of (L, B, T, KH, hd) tensors, or paged
 pools of (L, nblocks, bs, KH, hd), and for MLA (latent, rope key) tuples of
 (L, B, T, r) / (L, B, T, dr), or pools of (L, nblocks, bs, r) / (L,
 nblocks, bs, dr); for Mamba2 (conv state, SSM state) tuples of (L, B,
 cw-1, di+2N) / (L, B, nh, hp, N), and for the hybrid that pair followed by
-the shared attention block's k and v of (n_apps, B, T, KH, hd). ``step``
-updates every cache in place. Other families (llama4's GQA MoE, enc-dec,
-VLM) are not ported yet and raise.
+the shared attention block's k and v of (n_apps, B, T, KH, hd). llama4's
+cache is the flat (k, v) pair of L layers in model order, where the
+reference nests ((k_dense, v_dense), (k_moe, v_moe)) of L/2 each: period
+i's dense layer is layer 2i, its MoE layer 2i + 1. ``step`` updates every
+cache in place. Other families (enc-dec, VLM) are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -66,8 +71,11 @@ def _stack_into(stacked, tree, i: int) -> None:
 def init_stacked(make, n: int):
     """Stack n draws of ``make()`` (a nested dict of tensors) leaf by leaf
     into (n, ...) tensors, drawing and copying in one layer at a time: the
-    peak is the stack plus one layer, not two copies of the stack."""
+    peak is the stack plus one layer, not two copies of the stack. A single
+    draw gets its leading axis as a view, with no copy."""
     first = make()
+    if n == 1:
+        return tree_map(lambda a: a.unsqueeze(0), first)
     stacked = tree_map(lambda a: a.new_empty((n, *a.shape)), first)
     _stack_into(stacked, first, 0)
     del first
@@ -115,15 +123,27 @@ class Model:
     def __init__(self, cfg: ModelConfig, use_kernel: Optional[bool] = None,
                  backend: Optional[str] = None, device=None):
         self.kind = block_kind(cfg)
+        moe_every = cfg.moe.moe_every if cfg.moe is not None else 1
         dense = cfg.family == "dense" and cfg.moe is None and cfg.mla is None
-        mla_moe = self.kind == "mla_moe" and cfg.moe.moe_every == 1
+        routed = self.kind in ("moe", "mla_moe") and moe_every == 1
+        # llama4: dense and MoE layers interleaved (the reference's
+        # _stack_interleaved, a scan over periods of one of each)
+        self.interleaved = self.kind == "moe" and moe_every > 1
         mamba = cfg.cmoe is None and (cfg.family == "ssm" or (
             cfg.family == "hybrid" and cfg.hybrid_attn_every > 0))
-        if not (dense or mla_moe or mamba):
+        if not (dense or routed or self.interleaved or mamba):
             raise NotImplementedError(
                 f"family {cfg.family!r} (blocks {self.kind!r}) is not ported "
-                f"yet; the port runs the dense GQA decoder family, "
-                f"deepseek-v2's MLA + MoE, Mamba2 and the zamba2 hybrid")
+                f"yet; the port runs the dense GQA decoder family, llama4's "
+                f"GQA + MoE, deepseek-v2's MLA + MoE, Mamba2 and the zamba2 "
+                f"hybrid")
+        if self.interleaved and (moe_every != 2 or cfg.num_layers % 2):
+            raise ValueError(
+                f"{cfg.name}: an interleaved MoE stack runs periods of one "
+                f"dense and one MoE layer (moe_every 2; the reference's scan "
+                f"pairs blocks_dense with blocks_moe), so its depth must be "
+                f"a multiple of 2; got moe_every {moe_every}, "
+                f"{cfg.num_layers} layers")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_kernel = (self.device.type == "cuda") if use_kernel is None \
@@ -153,8 +173,16 @@ class Model:
                 dtype=torch.float32, device=dev) * cfg.d_model ** -0.5
             ).to(dt)
         init_block, _ = B.BLOCKS[self.kind]
-        params["blocks"] = init_stacked(
-            lambda: init_block(cfg, dt, dev, generator), cfg.num_layers)
+        if self.interleaved:
+            n_moe = cfg.num_layers // 2
+            params["blocks_dense"] = init_stacked(
+                lambda: B.init_dense_block(cfg, dt, dev, generator),
+                cfg.num_layers - n_moe)
+            params["blocks_moe"] = init_stacked(
+                lambda: init_block(cfg, dt, dev, generator), n_moe)
+        else:
+            params["blocks"] = init_stacked(
+                lambda: init_block(cfg, dt, dev, generator), cfg.num_layers)
         if cfg.family == "hybrid":
             params["shared_attn"] = B.init_dense_block(cfg, dt, dev,
                                                        generator)
@@ -173,8 +201,9 @@ class Model:
                row_k=None):
         """Run the layer stack. ``cache_pos`` is an int shared by the batch
         or a per-slot (B,) tensor. Returns (x, caches, aux) with
-        aux["ffn_in"] stacked over layers when ``capture`` and
-        aux["dropped"] summed over layers."""
+        aux["ffn_in"] stacked over layers when ``capture`` (for an
+        interleaved stack a dict {"moe", "dense"}, each stacked over its
+        own layers) and aux["dropped"] summed over layers."""
         cfg = self.cfg
         seq = x.shape[1]
         if isinstance(cache_pos, torch.Tensor):
@@ -194,24 +223,41 @@ class Model:
                         row_slots=row_slots, row_k=row_k)
         if cfg.family == "hybrid":
             return self._stack_hybrid(params, x, base, caches)
-        blocks = params["blocks"]
-        _, block_fn = B.BLOCKS[self.kind]
-        taps = []
+        taps: dict[str, list] = {}
         dropped = []
-        for li, window in enumerate(layer_windows(cfg)):
-            p = tree_map(lambda a: a[li], blocks)
+        for li, (block_fn, blocks, i, window, tap) in enumerate(
+                self._layers(params)):
+            p = tree_map(lambda a: a[i], blocks)
             cache_l = None if caches is None else \
                 (caches[0][li], caches[1][li])
             x, _, aux = block_fn(x, p, cfg, base._replace(cache=cache_l,
                                                           window=window))
             if capture:
-                taps.append(aux["ffn_in"])
+                taps.setdefault(tap, []).append(aux["ffn_in"])
             if "dropped" in aux:
                 dropped.append(aux["dropped"])
-        out = {"ffn_in": torch.stack(taps)} if capture else {}
+        out = {}
+        if capture:
+            out["ffn_in"] = {k: torch.stack(v) for k, v in taps.items()} \
+                if self.interleaved else torch.stack(taps[None])
         if dropped:
             out["dropped"] = torch.stack(dropped).sum()
         return x, caches, out
+
+    def _layers(self, params) -> list:
+        """(block_fn, stacked block params, index into them, window, tap
+        key) for each layer in model order, which is the cache's layer
+        order. An interleaved stack's period i runs dense layer i and then
+        MoE layer i, with no window (the reference's scan over periods
+        takes none) and their FFN inputs tapped apart."""
+        cfg = self.cfg
+        if self.interleaved:
+            return [layer for i in range(cfg.num_layers // 2) for layer in (
+                (B.dense_block, params["blocks_dense"], i, 0, "dense"),
+                (B.moe_block, params["blocks_moe"], i, 0, "moe"))]
+        _, block_fn = B.BLOCKS[self.kind]
+        return [(block_fn, params["blocks"], li, window, None)
+                for li, window in enumerate(layer_windows(cfg))]
 
     def _stack_hybrid(self, params, x: torch.Tensor, base: BlockCtx,
                       caches):
@@ -259,9 +305,11 @@ class Model:
         x, _, _ = self._stack(params, x)
         return x
 
-    def ffn_inputs(self, params, batch) -> torch.Tensor:
+    def ffn_inputs(self, params, batch):
         """Per-layer pre-FFN activations over a calibration batch, the x
-        whose FFN hidden states CMoE profiles: (L, B, S, d)."""
+        whose FFN hidden states CMoE profiles: (L, B, S, d), or for an
+        interleaved stack a dict {"moe": ..., "dense": ...} of (L/2, B, S,
+        d) each."""
         x = self._embed(params, batch)
         _, _, aux = self._stack(params, x, capture=True)
         return aux["ffn_in"]

@@ -366,12 +366,13 @@ class _InFlight:
 def check_servable(cfg, kind) -> None:
     """Raise unless the engine serves this model. As in the reference it
     needs a positional KV cache, which the SSM, hybrid and enc-dec families
-    lack; of the KV families, the port serves the dense and MLA ones."""
+    lack; of the KV families, the port serves the dense, GQA-MoE (llama4)
+    and MLA ones."""
     if cfg.family in ("ssm", "hybrid", "audio"):
         raise NotImplementedError(
             f"serving engine needs a positional KV cache; family="
             f"{cfg.family!r} kind={kind!r} is not slot-addressable")
-    if kind not in ("dense", "mla_moe"):
+    if kind not in ("dense", "moe", "mla_moe"):
         raise NotImplementedError(
             f"serving engine needs a positional KV cache of a ported "
             f"family; family={cfg.family!r} kind={kind!r} is not ported")
@@ -390,9 +391,10 @@ def _weak_hook(method):
 class ServingEngine:
     """Continuous-batching engine over a slot KV cache.
 
-    model/params: the port's dense GQA family (plain or CMoE-converted)
-    or deepseek-v2's MLA + pretrained MoE, whose cache is the (latent,
-    rope key) pair. max_slots is the batch width (one slot = one lane of
+    model/params: the port's dense GQA family (plain or CMoE-converted),
+    llama4's interleaved dense / GQA-MoE stack (pretrained or
+    hierarchically converted), or deepseek-v2's MLA + pretrained MoE,
+    whose cache is the (latent, rope key) pair. max_slots is the batch width (one slot = one lane of
     the cache); max_len bounds prompt + generation per request.
     policy="static" turns the same machinery into the fixed-batch
     baseline (admit only when all slots are free) — used by the goodput

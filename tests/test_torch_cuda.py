@@ -1155,3 +1155,91 @@ def test_cuda_hierarchical_ffn_is_width_invariant(phase):
                                       phase=phase)
         assert torch.equal(one[0], full[r]), r
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("depth,bs", [(75, 16), (600, 16), (600, 8)])
+def test_cuda_paged_attn_llama4_group_matches_plain(dtype, depth, bs):
+    """paged_attn_decode at llama4's grouping, 8 kv heads of 128 with 5
+    query heads each, on fragmented tables with two rows sharing a lane
+    and an all-trash padding row, in views of one and of several 256-key
+    chunks, against its plain version; and each row bitwise the same
+    alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.paged_attention import paged_attn_decode_plain
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    rows, kh, grp, hd = 6, 8, 5, 128
+    kp, vp, table = _pools(g, dev, dt, rows, depth, bs, (kh, hd))
+    table[1] = table[0]                          # two rows share a lane
+    table[5] = 0                                 # an all-trash padding row
+    pos = torch.tensor([depth, depth - 5, depth // 2, 255, 256, 0],
+                       dtype=torch.int32, device=dev)
+    q = torch.randn((rows, 1, kh * grp, hd), generator=g, device=dev).to(dt)
+    tops.reset_launches()
+    got = tops.paged_attn_decode(q, kp, vp, table=table, pos=pos,
+                                 scale=hd ** -0.5)
+    ref = paged_attn_decode_plain(q, kp, vp, table, pos, 0, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["paged_attn_decode"] == 1
+    assert torch.isfinite(got).all()
+    _close_rows(got, ref, dt)
+    for i in range(rows):
+        one = tops.paged_attn_decode(q[i:i + 1], kp, vp, table=table[i:i + 1],
+                                     pos=pos[i:i + 1], scale=hd ** -0.5)
+        assert torch.equal(one, got[i:i + 1]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("phase,t,want", [
+    ("prefill", 128, "gather"), ("prefill", 256, "grouped_kernel"),
+    ("decode", 4, "gather"), ("mixed", 129, "grouped_kernel")])
+def test_cuda_llama4_moe_ffn_matches_plain(dtype, phase, t, want):
+    """llama4's pretrained MoE FFN (128 experts top-1 and a shared expert)
+    at a medium width on the kernel path against its plain path, on both
+    sides of the gather / grouped break-even (t <= E / k = 128 tokens runs
+    moe_gather, more moe_gmm_ragged), with a masked row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from types import SimpleNamespace
+
+    from repro_torch.config import MoEConfig
+    from repro_torch.core.experts import microbatch_backend
+    from repro_torch.models.moe import moe_ffn
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    e, d, m = 128, 512, 256
+    cfg = SimpleNamespace(name="llama4-medium", activation="swiglu",
+                          cmoe=None,
+                          moe=MoEConfig(num_experts=e, top_k=1, d_expert=m,
+                                        num_shared=1, d_shared=m))
+    assert microbatch_backend(cfg, t, phase, use_kernel=True) == want
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device=dev) *
+                shape[-2] ** -0.5).to(dt)
+
+    p = {"router": w(d, e), "wg": w(e, d, m), "wu": w(e, d, m),
+         "wd": w(e, m, d),
+         "balance_bias": torch.randn(e, generator=g, device=dev) * 0.05,
+         "shared_wg": w(d, m), "shared_wu": w(d, m), "shared_wd": w(m, d)}
+    x = torch.randn((1, t, d), generator=g, device=dev).to(dt)
+    valid = torch.ones((t, 1), dtype=torch.bool, device=dev)
+    valid[1] = False
+    tops.reset_launches()
+    got, aux = moe_ffn(x, p, cfg, use_kernel=True, phase=phase, valid=valid)
+    name = "moe_gather" if want == "gather" else "moe_gmm_ragged"
+    assert tops.LAUNCHES[name] == 1
+    ref, _ = moe_ffn(x, p, cfg, use_kernel=False, phase=phase, valid=valid,
+                     backend="gather" if want == "gather" else
+                     "grouped_plain")
+    _close(got, ref, dt)
+    assert int(aux["dropped"]) == 0
+    torch.cuda.synchronize()

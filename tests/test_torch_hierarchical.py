@@ -168,12 +168,6 @@ def test_partition_pool_matches_serial_loop(conv):
                                       want.cluster.centroids)
 
 
-def test_interleaved_stack_raises(conv):
-    with pytest.raises(NotImplementedError, match="llama4"):
-        th.convert_moe_model(conv["mt"], {"blocks_moe": {}}, conv["tcal"],
-                             CMoEConfig(**CM))
-
-
 def test_converted_config_without_converted_block_raises():
     """A CMoE config on unconverted MoE blocks is refused, never served as
     the plain MoE under a conversion tag."""
