@@ -142,8 +142,31 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      contiguous cache of 1100, one Model.decode_step, then layer 0's cache
      and the step's post-RoPE query (BH 128, T 1100, pos 1024) against the
      plain version and decode_attention, both calls on the split-KV
-     core (flash_decode.route); tolerances as in phase 2.
-The ``[routes]`` lines of phases 3a, 3b, 4, 5 (5a, path A, 5b-5e) and 6
+     core (flash_decode.route); tolerances as in phase 2;
+  8. the last decoder-only archs at their published widths (DENSE_ARCHS):
+     phi3-medium-14b (all 40 layers) and gemma3-4b (all 34: GEGLU, hd 256
+     with 1024-token windows on 5 layers of 6, a tied 262144-row head),
+     granite-34b (GELU 2-matrix FFN, 48 query heads on one kv head) and
+     internvl2-26b (the VLM family) cut to 8 layers; for each: (a) float32
+     at 2 layers, the kernel path against the plain path through
+     Model.step on a paged cache, a prefill chunk (internvl2's carries 256
+     random patch embeddings before 32 text tokens) and 4 decode steps
+     (logits within 1e-3 max|logit| at every step); (b) bfloat16, the
+     CLI's static path unconverted (prefill 4 x 32, 16 generated), with
+     swiglu_ffn (phi3, gemma3) and paged_attn_decode (the decode step of a
+     paged cache 64 tokens deep, also timed in a CUDA graph: granite's
+     group of 48) on the inputs the path gives them against their plain
+     versions; (c) the same with --cmoe S3A3E8 (conversion seconds, peak
+     memory after init, conversion and serving), the device time of a
+     converted prefill and decode step by kernel (phi3, gemma3, granite),
+     the share of a converted decode step that gemma3's float32 LM head
+     and granite's plain non-GLU gather take, and moe_gmm_ragged and
+     moe_gather on their inputs (phi3, gemma3); (d) the engine on the
+     converted model with phase 4's engine flags; launch counts zeroed
+     before each run and read after: granite launches no GLU-only FFN
+     kernel, the others all three, and every engine paged_attn_decode.
+Each phase prints its seconds (``[seconds]``).
+The ``[routes]`` lines of phases 3a, 3b, 4, 5 (5a, path A, 5b-5e), 6 and 8
 count which kernel each launch of the four FFN kernels and of
 mla_paged_decode ran: every bfloat16 launch on the tensor cores, every
 float32 one on the SIMT kernel (phase 7 checks half and half), or the run
@@ -201,6 +224,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -278,6 +302,29 @@ PAGED_LLAMA4 = dict(rows=4, kh=8, grp=5, hd=128, bs=16, depth=80)
 # on llama4's banks (the plain version copies each tile's three expert
 # slabs to float32, 503 MB a tile unconverted)
 L4_CHECK_TILES = 24
+# the last decoder-only archs (phase 8), each at its published widths in
+# bfloat16 through phase 3b's static shapes and phase 4's engine flags,
+# unconverted and converted to DENSE_CMOE: (arch, short key, layers; None
+# keeps the published depth). phi3-medium-14b (40 layers, 29.3 GB) and
+# gemma3-4b (34, 7.8 GB, a tied 262144-row head) run whole; granite-34b
+# (88 layers of 0.76 GB) and internvl2-26b (48 of 0.78 GB) are cut to 8
+# layers for time
+DENSE_ARCHS = (("phi3-medium-14b", "phi3", None),
+               ("gemma3-4b", "gemma3", None),
+               ("granite-34b", "granite", 8),
+               ("internvl2-26b", "internvl2", 8))
+DENSE_CMOE = "S3A3E8"
+DENSE_F32_LAYERS = 2
+# internvl2's published patch count: its float32 prefill carries this many
+# random patch embeddings in place of its first positions, then PROMPT
+# text tokens
+VLM_PATCHES = 256
+# the depth of the paged decode step whose paged_attn_decode inputs phase 8
+# checks and times: the engine's longest prompt (ENGINE_ARGS --prompt-len)
+PAGED_STEP_DEPTH = 64
+# gemma3's second paged decode step, past its 1024-token sliding window, so
+# the window masks keys on the local layer the check reads
+WINDOW_STEP_DEPTH = 1100
 # mla_paged_decode at the engine's decode shape and at a long context
 # (r = kv_lora_rank, dr = qk_rope_head_dim, scale (dn + dr)^-0.5)
 MLA_MAIN = dict(rows=4, heads=128, r=512, dr=64, bs=16, depth=80)
@@ -1036,7 +1083,10 @@ def kernel_ms(fn, inputs: list, calls: int = 20) -> dict:
         t_us = getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
         if t_us > 0:
-            per[e.key[:60]] = round(t_us / calls / 1e3, 5)
+            # kernels whose names share the first 60 characters (the
+            # elementwise and copy kernels' instantiations) add up
+            key = e.key[:60]
+            per[key] = round(per.get(key, 0.0) + t_us / calls / 1e3, 5)
     return per
 
 
@@ -2294,6 +2344,62 @@ def engine_phase() -> dict:
     return launches
 
 
+def paged_agreement(k_model, p_model, params, prompts, gen, tag: str,
+                    extras: Optional[dict] = None, steps: int = 4,
+                    bs: int = 16) -> None:
+    """The kernel path against the plain path on one set of weights,
+    through Model.step on a paged cache with fragmented tables (drawn from
+    `gen`): a prefill chunk of `prompts` on a lane each (with `extras` for
+    the embedder), then `steps` decode steps. Both paths are fed the kernel
+    path's greedy tokens, so every step's logits are comparable: within
+    1e-3 of max|logit| at every step, no routed pair dropped. Launch counts
+    are zeroed first."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = prompts.device
+    rows, seq = prompts.shape
+    nblk = -(-(seq + steps) // bs)
+    table = (torch.randperm(rows * nblk, generator=gen, device=dev) + 1
+             ).reshape(rows, nblk).to(torch.int32)
+    feed = [prompts]
+    logits = {}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for path, m in (("kernel", k_model), ("plain", p_model)):
+        pool = m.init_paged_cache(1 + rows * nblk, bs)
+        out = []
+        for i in range(steps + 1):
+            start = torch.full((rows,), 0 if i == 0 else seq + i - 1,
+                               dtype=torch.int32, device=dev)
+            lg, pool, stats = m.step(params, feed[i], pool, start,
+                                     block_tables=table, return_stats=True,
+                                     extras=extras if i == 0 else None)
+            if int(stats["dropped"]):
+                raise AssertionError(f"{tag} {path} path dropped routed "
+                                     f"pairs")
+            out.append(lg.float())
+            if path == "kernel" and i < steps:
+                feed.append(torch.argmax(lg, -1)[:, None])
+        logits[path] = out
+    worst = 0.0
+    agree = 0
+    for i, (lk, lp) in enumerate(zip(logits["kernel"], logits["plain"])):
+        err = (lk - lp).abs().max().item()
+        scale = lp.abs().max().item()
+        worst = max(worst, err / scale)
+        if not (torch.isfinite(lk).all() and err <= 1e-3 * scale):
+            raise AssertionError(f"{tag} step {i}: kernel path disagrees "
+                                 f"with the plain path ({err:.3e} > 1e-3 x "
+                                 f"{scale:.3e})")
+        agree += int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    print(f"[e2e {tag}] kernel vs plain over a prefill chunk of {seq} "
+          f"tokens and {steps} decode steps: max|err| / max|logit| "
+          f"{worst:.3e} (tol 1e-3); greedy tokens agree "
+          f"{agree}/{rows * (steps + 1)}")
+
+
 def deepseek_f32_agreement() -> dict:
     """Phase 5a: deepseek-v2 at full width in float32, cut to DS_F32_LAYERS
     layers: the kernel path (mla_paged_decode, moe_gmm_ragged, moe_gather)
@@ -2307,7 +2413,6 @@ def deepseek_f32_agreement() -> dict:
 
     from repro_torch.config import override
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
     dev = torch.device("cuda")
@@ -2324,44 +2429,9 @@ def deepseek_f32_agreement() -> dict:
           f"{DS_F32_LAYERS} layers, float32: init "
           f"{time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
-    rows, steps, bs = BATCH, 4, 16
-    nblk = -(-(PROMPT + steps) // bs)
-    table = (torch.randperm(rows * nblk, generator=gen, device=dev) + 1
-             ).reshape(rows, nblk).to(torch.int32)
     prompts = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (rows, PROMPT)), dtype=torch.long, device=dev)
-    feed = [prompts]
-    logits = {}
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    for tag, m in (("kernel", k_model), ("plain", p_model)):
-        pool = m.init_paged_cache(1 + rows * nblk, bs)
-        out = []
-        for i in range(steps + 1):
-            start = torch.full((rows,), 0 if i == 0 else PROMPT + i - 1,
-                               dtype=torch.int32, device=dev)
-            lg, pool, stats = m.step(params, feed[i], pool, start,
-                                     block_tables=table, return_stats=True)
-            if int(stats["dropped"]):
-                raise AssertionError(f"{tag} path dropped routed pairs")
-            out.append(lg.float())
-            if tag == "kernel" and i < steps:
-                feed.append(torch.argmax(lg, -1)[:, None])
-        logits[tag] = out
-    worst = 0.0
-    agree = 0
-    for i, (lk, lp) in enumerate(zip(logits["kernel"], logits["plain"])):
-        err = (lk - lp).abs().max().item()
-        scale = lp.abs().max().item()
-        worst = max(worst, err / scale)
-        if not (torch.isfinite(lk).all() and err <= 1e-3 * scale):
-            raise AssertionError(f"deepseek f32 step {i}: kernel path "
-                                 f"disagrees with the plain path ({err:.3e}"
-                                 f" > 1e-3 x {scale:.3e})")
-        agree += int((lk.argmax(-1) == lp.argmax(-1)).sum())
-    print(f"[e2e deepseek f32] kernel vs plain over a prefill chunk and "
-          f"{steps} decode steps: max|err| / max|logit| {worst:.3e} (tol "
-          f"1e-3); greedy tokens agree {agree}/{rows * (steps + 1)}")
+        0, cfg.vocab_size, (BATCH, PROMPT)), dtype=torch.long, device=dev)
+    paged_agreement(k_model, p_model, params, prompts, gen, "deepseek f32")
     kernel_routes("phase 5a deepseek f32 kernel path", "simt")
     return capacity_path(k_model, params, "f32")
 
@@ -2445,25 +2515,27 @@ def deepseek_serving() -> dict:
     return launches, path_a
 
 
-def capture_call(name: str, call):
-    """call() with ops.<name> wrapped to keep the arguments of its first
-    call (the inputs the path gives the kernel). Returns (call()'s result,
-    (args, kwargs))."""
+def capture_call(name: str, call, module=None):
+    """call() with <module>.<name> (default ops.<name>) wrapped to keep the
+    arguments of its first call (the inputs the path gives the kernel or
+    function) and count its calls. Returns (call()'s result, (args,
+    kwargs), the number of calls)."""
     from repro_torch.kernels import ops
-    kernel = getattr(ops, name)
+    if module is None:
+        module = ops
+    kernel = getattr(module, name)
     seen = []
 
     def wrapper(*args, **kwargs):
-        if not seen:
-            seen.append((args, kwargs))
+        seen.append((args, kwargs) if not seen else None)
         return kernel(*args, **kwargs)
 
-    setattr(ops, name, wrapper)
+    setattr(module, name, wrapper)
     try:
         out = call()
     finally:
-        setattr(ops, name, kernel)
-    return out, seen[0]
+        setattr(module, name, kernel)
+    return out, seen[0], len(seen)
 
 
 def live_bound(live_rows: int, x_rows: int, ids, d: int, m: int):
@@ -2531,7 +2603,8 @@ def hierarchical_ffn_checks(model, p0, records: dict,
 
     # moe_gmm_ragged at a 4 x 32 prefill
     xp = torch.randn((BATCH, PROMPT, d), generator=g, device=dev).to(bf)
-    _, (args, kw) = capture_call("moe_gmm_ragged", lambda: ffn(xp, "prefill"))
+    _, (args, kw), _ = capture_call("moe_gmm_ragged",
+                                    lambda: ffn(xp, "prefill"))
     lay, owner, wg, wu, wd = args
     block = kw["block_c"]
     m = wg.shape[2]
@@ -2574,7 +2647,8 @@ def hierarchical_ffn_checks(model, p0, records: dict,
 
     # moe_gather at a 4-token decode
     xd = torch.randn((BATCH, 1, d), generator=g, device=dev).to(bf)
-    _, (args, kw) = capture_call("moe_gather", lambda: ffn(xd, "decode"))
+    _, (args, kw), _ = capture_call("moe_gather",
+                                    lambda: ffn(xd, "decode"))
     xf, ids, wg, wu, wd = args
     n_sub = wg.shape[0]
     got = routed("moe_gather", "tensor_core",
@@ -2659,7 +2733,7 @@ def conversion_cost() -> None:
     serial = [partition_neurons(a, mu, cm) for a, mu in profiles]
     t_serial = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pooled = hier.partition_experts(profiles, cm)
+    pooled = hier.partition_profiles(profiles, cm)
     t_pool = time.perf_counter() - t0
     for one, other in zip(serial, pooled):
         if not ((one.routed_idx == other.routed_idx).all() and
@@ -2675,20 +2749,22 @@ def conversion_cost() -> None:
           f"bitwise equal")
 
 
-def step_trace(model, params, prompts, host_ms: dict, what: str) -> None:
+def step_trace(model, params, prompts, host_ms: dict, what: str) -> dict:
     """Where a static prefill of `prompts` and a decode step (a lane each)
     spend the card's time: each CUDA kernel's device ms a call
     (torch.profiler), their sum against the static path's host-timed ms,
-    and the kernels that take most of it."""
+    and the kernels that take most of it. Returns the device ms a call by
+    phase."""
     import torch
     seq = prompts.shape[1]
     _, cache = model.prefill(params, {"tokens": prompts}, max_len=seq + GEN)
     tok = prompts[:, -1:]
     calls = {"prefill": lambda: model.prefill(params, {"tokens": prompts}),
              "decode": lambda: model.decode_step(params, tok, cache, seq)}
+    busy_ms = {}
     for phase, fn in calls.items():
         per = kernel_ms(fn, [[]], calls=3)
-        busy = sum(per.values())
+        busy = busy_ms[phase] = sum(per.values())
         top = ", ".join(f"{name.strip()} {ms:.3f}" for name, ms in
                         sorted(per.items(), key=lambda kv: -kv[1])[:6])
         print(f"[trace] {what} {phase}: {busy:.2f} ms of device time "
@@ -2697,6 +2773,7 @@ def step_trace(model, params, prompts, host_ms: dict, what: str) -> None:
               f"most: {top}")
     del cache
     torch.cuda.synchronize()
+    return busy_ms
 
 
 def deepseek_hierarchical(records: dict) -> tuple[dict, dict]:
@@ -2802,64 +2879,74 @@ def deepseek_hierarchical(records: dict) -> tuple[dict, dict]:
     return static, engine
 
 
-def llama4_ffn_checks(model, params, records: dict) -> None:
-    """Phase 5e on the unconverted model: its three FFN kernels on the
-    inputs the path gives them, captured from a 4 x L4_PROMPT prefill
-    (swiglu_ffn in the dense layer, moe_gmm_ragged past the break-even)
-    and a 4-lane decode step (moe_gather), each against its plain version
-    and timed beside a chain of PyTorch calls and a bound. The plain
-    version copies each layout tile's expert slabs in float32, so
-    moe_gmm_ragged is held to it on L4_CHECK_TILES live tiles spread over
-    the layout (a tile's rows depend on that tile alone); the subset is
-    timed on all three. The records go under records[kernel]["llama4"]."""
-    import torch
+def glu_act(activation: str):
+    """The GLU activation of the PyTorch chains that yardstick the FFN
+    kernels (swish for swiglu, tanh-approximated GELU for geglu)."""
     import torch.nn.functional as F
+    if activation == "swiglu":
+        return F.silu
+    return lambda v: F.gelu(v, approximate="tanh")
+
+
+def swiglu_check(model, params, prompts, records: dict, key: str) -> None:
+    """swiglu_ffn on the inputs the first dense FFN of a prefill of
+    `prompts` gives it, against its plain version, timed beside a chain of
+    PyTorch calls and a bound; the record goes under
+    records["swiglu_ffn"][key]."""
+    import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.moe_gather import moe_gather_plain
-    from repro_torch.kernels.moe_gmm import moe_gmm_ragged_plain
     from repro_torch.kernels.swiglu import swiglu_ffn_plain
 
     cfg = model.cfg
-    dev = torch.device("cuda")
-    bf = torch.bfloat16
     d = cfg.d_model
-    g = torch.Generator(device=dev)
-    g.manual_seed(6)
-    prompts = torch.randint(0, cfg.vocab_size, (BATCH, L4_PROMPT),
-                            generator=g, device=dev)
-
-    def prefill():
-        return model.prefill(params, {"tokens": prompts})
-
-    def glu_chain(x, wg, wu, wd):
-        return (F.silu(x @ wg) * (x @ wu)) @ wd
-
-    # swiglu_ffn: the dense layer's FFN at the prefill (T 256)
-    _, (args, kw) = capture_call("swiglu_ffn", prefill)
+    act = glu_act(cfg.activation)
+    _, (args, kw), _ = capture_call("swiglu_ffn", lambda: model.prefill(
+        params, {"tokens": prompts}))
     x, wg, wu, wd = args
     args = [x.reshape(-1, d), wg, wu, wd]
     t, f = args[0].shape[0], wg.shape[1]
     got = routed("swiglu_ffn", "tensor_core",
                  lambda: ops.swiglu_ffn(*args, **kw))
-    err = check(f"swiglu_ffn {cfg.name} dense layer (T={t} d={d} f={f})",
-                got, swiglu_ffn_plain(*args, cfg.activation), bf)
+    err = check(f"swiglu_ffn {cfg.name} dense layer (T={t} d={d} f={f} "
+                f"{cfg.activation})", got,
+                swiglu_ffn_plain(*args, cfg.activation), torch.bfloat16)
     b_ms, b_by = bound(6 * t * d * f, 2 * (3 * d * f + 2 * t * d),
                        "bfloat16")
-    rec = dict(shape=f"T={t} d={d} f={f}", max_abs_err=err, bound_ms=b_ms,
-               bound_by=b_by,
+    rec = dict(shape=f"T={t} d={d} f={f} {cfg.activation}", max_abs_err=err,
+               bound_ms=b_ms, bound_by=b_by,
                ms=time_ms(lambda *a: ops.swiglu_ffn(*a, **kw), [args],
                           iters=20),
                plain_ms=time_ms(lambda *a: swiglu_ffn_plain(
                    *a, cfg.activation), [args], iters=3),
-               library_ms=time_ms(glu_chain, [args], iters=10))
-    records["swiglu_ffn"]["llama4"] = rec
+               library_ms=time_ms(lambda x_, wg_, wu_, wd_: (
+                   act(x_ @ wg_) * (x_ @ wu_)) @ wd_, [args], iters=10))
+    records["swiglu_ffn"][key] = rec
     print(f"[time] swiglu_ffn {cfg.name} dense prefill ({rec['shape']}): "
           f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, chain "
           f"{rec['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
-    # moe_gmm_ragged: the MoE layer's routed experts at the prefill
-    _, (args, kw) = capture_call("moe_gmm_ragged", prefill)
+
+def ragged_check(model, params, prompts, records: dict, key: str) -> None:
+    """moe_gmm_ragged on the inputs the first routed-expert layer of a
+    prefill of `prompts` gives it. The plain version copies each layout
+    tile's expert slabs in float32, so the kernel is held to it on
+    L4_CHECK_TILES live tiles spread over the layout (a tile's rows depend
+    on that tile alone); the subset is timed on the kernel, the plain
+    version and a chain of PyTorch calls, the whole layout on the kernel
+    beside a bound that counts live rows and experts. The record goes
+    under records["moe_gmm_ragged"][key]."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gmm import moe_gmm_ragged_plain
+
+    cfg = model.cfg
+    dev = prompts.device
+    d = cfg.d_model
+    act = glu_act(cfg.activation)
+    _, (args, kw), _ = capture_call("moe_gmm_ragged", lambda: model.prefill(
+        params, {"tokens": prompts}))
     lay, owner, wg, wu, wd = args
     block = kw["block_c"]
     m = wg.shape[2]
@@ -2874,9 +2961,9 @@ def llama4_ffn_checks(model, params, records: dict) -> None:
     rows = (pick[:, None] * block +
             torch.arange(block, device=dev)[None, :]).reshape(-1)
     sub = [lay[rows].contiguous(), owner[pick].contiguous(), wg, wu, wd]
-    err = check(f"moe_gmm_ragged {cfg.name} ({wg.shape[0]} experts, "
-                f"{pick.numel()} live tiles of {tiles.numel()})", got[rows],
-                moe_gmm_ragged_plain(*sub, **kw), bf)
+    err = check(f"moe_gmm_ragged {cfg.name} ({wg.shape[0]} experts of "
+                f"{m}, {pick.numel()} live tiles of {tiles.numel()})",
+                got[rows], moe_gmm_ragged_plain(*sub, **kw), torch.bfloat16)
     n_live = int(live.sum())
     distinct, (b_ms, b_by) = live_bound(n_live, n_live,
                                         owner[tiles].long(), d, m)
@@ -2884,7 +2971,7 @@ def llama4_ffn_checks(model, params, records: dict) -> None:
     def tile_chain(xp_, o, wg_, wu_, wd_):
         own = o.long()
         xb = xp_.reshape(-1, block, d)
-        h = F.silu(torch.bmm(xb, wg_[own])) * torch.bmm(xb, wu_[own])
+        h = act(torch.bmm(xb, wg_[own])) * torch.bmm(xb, wu_[own])
         return torch.bmm(h, wd_[own])
 
     kernel = lambda *a: ops.moe_gmm_ragged(*a, **kw)  # noqa: E731
@@ -2892,7 +2979,7 @@ def llama4_ffn_checks(model, params, records: dict) -> None:
     rec = dict(shape=f"P={lay.shape[0]} live rows={n_live} in "
                      f"{int(tiles.sum())} of {tiles.numel()} tiles, "
                      f"E={wg.shape[0]} d={d} m={m} distinct live "
-                     f"experts={distinct}",
+                     f"experts={distinct} {cfg.activation}",
                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
                ms=time_ms(kernel, [args], iters=10),
                live_tiles_ms=time_ms(kernel, [[lay[:cut * block],
@@ -2903,7 +2990,7 @@ def llama4_ffn_checks(model, params, records: dict) -> None:
                plain_subset_ms=time_ms(lambda *a: moe_gmm_ragged_plain(
                    *a, **kw), [sub], iters=3),
                library_subset_ms=time_ms(tile_chain, [sub], iters=3))
-    records["moe_gmm_ragged"]["llama4"] = rec
+    records["moe_gmm_ragged"][key] = rec
     print(f"[time] moe_gmm_ragged {cfg.name} prefill ({rec['shape']}): "
           f"{rec['ms']:.4f} ms, through the last live tile "
           f"{rec['live_tiles_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); on "
@@ -2911,19 +2998,34 @@ def llama4_ffn_checks(model, params, records: dict) -> None:
           f"{rec['plain_subset_ms']:.4f} ms, chain "
           f"{rec['library_subset_ms']:.4f} ms")
 
-    # moe_gather: the MoE layer's routed experts at a decode step
-    _, cache = model.prefill(params, {"tokens": prompts},
-                             max_len=L4_PROMPT + 1)
-    _, (args, kw) = capture_call("moe_gather", lambda: model.decode_step(
-        params, prompts[:, -1:], cache, L4_PROMPT))
+
+def gather_check(model, params, prompts, records: dict, key: str) -> None:
+    """moe_gather on the inputs the first routed-expert layer of a decode
+    step (a lane for each prompt, after their prefill) gives it, against
+    its plain version, timed back to back and in a CUDA graph beside a
+    chain of PyTorch calls and a bound that counts live rows and experts.
+    The record goes under records["moe_gather"][key]."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gather import moe_gather_plain
+
+    cfg = model.cfg
+    d = cfg.d_model
+    act = glu_act(cfg.activation)
+    seq = prompts.shape[1]
+    _, cache = model.prefill(params, {"tokens": prompts}, max_len=seq + 1)
+    _, (args, kw), _ = capture_call("moe_gather", lambda: model.decode_step(
+        params, prompts[:, -1:], cache, seq))
     del cache
     xf, ids, wg, wu, wd = args
+    m = wg.shape[2]
     got = routed("moe_gather", "tensor_core",
                  lambda: ops.moe_gather(*args, **kw))
     dead = ids >= wg.shape[0]
     err = check(f"moe_gather {cfg.name} ({ids.numel()} rows, "
-                f"{wg.shape[0]} experts)", got,
-                moe_gather_plain(*args, **kw), bf,
+                f"{wg.shape[0]} experts of {m})", got,
+                moe_gather_plain(*args, **kw), torch.bfloat16,
                 sentinel_rows=dead if bool(dead.any()) else None)
     n_live = int((~dead).sum())
     distinct, (b_ms, b_by) = live_bound(n_live, xf.shape[0], ids[~dead], d,
@@ -2932,11 +3034,12 @@ def llama4_ffn_checks(model, params, records: dict) -> None:
     def row_chain(xf_, i, wg_, wu_, wd_):
         i = i.long().clamp(max=wg_.shape[0] - 1)
         xr = xf_.repeat_interleave(kw["top_k"], dim=0)[:, None]
-        h = F.silu(torch.bmm(xr, wg_[i])) * torch.bmm(xr, wu_[i])
+        h = act(torch.bmm(xr, wg_[i])) * torch.bmm(xr, wu_[i])
         return torch.bmm(h, wd_[i])[:, 0]
 
     rec = dict(shape=f"rows={ids.numel()} live={n_live} E={wg.shape[0]} "
-                     f"d={d} m={m} distinct live experts={distinct}",
+                     f"d={d} m={m} distinct live experts={distinct} "
+                     f"{cfg.activation}",
                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
                ms=time_ms(lambda *a: ops.moe_gather(*a, **kw), [args],
                           iters=20),
@@ -2945,11 +3048,28 @@ def llama4_ffn_checks(model, params, records: dict) -> None:
                plain_ms=time_ms(lambda *a: moe_gather_plain(*a, **kw),
                                 [args], iters=5),
                library_ms=time_ms(row_chain, [args], iters=5))
-    records["moe_gather"]["llama4"] = rec
+    records["moe_gather"][key] = rec
     print(f"[time] moe_gather {cfg.name} decode ({rec['shape']}): "
           f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} in a CUDA graph), "
           f"plain {rec['plain_ms']:.4f} ms, chain {rec['library_ms']:.4f} "
           f"ms, bound {b_ms:.4f} ms ({b_by})")
+
+
+def llama4_ffn_checks(model, params, records: dict) -> None:
+    """Phase 5e on the unconverted model: its three FFN kernels on the
+    inputs the path gives them, captured from a 4 x L4_PROMPT prefill
+    (swiglu_ffn in the dense layer, moe_gmm_ragged past the break-even)
+    and a 4-lane decode step (moe_gather), each against its plain version
+    and timed beside a chain of PyTorch calls and a bound. The records go
+    under records[kernel]["llama4"]."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    prompts = torch.randint(0, model.cfg.vocab_size, (BATCH, L4_PROMPT),
+                            generator=g, device="cuda")
+    for fn in (swiglu_check, ragged_check, gather_check):
+        fn(model, params, prompts, records, "llama4")
 
 
 def engine_run(model, params, tag: str, phase: str, want: tuple) -> dict:
@@ -2994,15 +3114,20 @@ def engine_run(model, params, tag: str, phase: str, want: tuple) -> dict:
     return launches
 
 
-def llama4_static(argv: list, tag: str) -> tuple[dict, dict]:
+def static_run(argv: list, tag: str, phase: str, want: tuple = (
+        "swiglu_ffn", "moe_gmm_ragged", "moe_gather"),
+        backends: Optional[dict] = None) -> tuple[dict, dict]:
     """serve.run(argv) with the peak and the launch counts zeroed before
-    and read after; checks its tokens, logits and backends. Returns (its
-    result, the launch counts)."""
+    and read after; checks its tokens, logits and backends per phase
+    (default grouped_kernel / gather), and that each kernel of `want` was
+    launched. Returns (its result, the launch counts)."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
+    if backends is None:
+        backends = {"prefill": "grouped_kernel", "decode": "gather"}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -3016,9 +3141,9 @@ def llama4_static(argv: list, tag: str) -> tuple[dict, dict]:
             not torch.isfinite(res["prefill_logits"]).all():
         raise AssertionError(f"bad {tag} serve output: tokens "
                              f"{tuple(toks.shape)}")
-    if res["backends"] != {"prefill": "grouped_kernel", "decode": "gather"}:
+    if res["backends"] != backends:
         raise AssertionError(f"{tag} backends per phase: {res['backends']}")
-    for name in ("swiglu_ffn", "moe_gmm_ragged", "moe_gather"):
+    for name in want:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{tag} static path: {launches}")
@@ -3027,11 +3152,12 @@ def llama4_static(argv: list, tag: str) -> tuple[dict, dict]:
         f"{res['convert_profile_s']:.2f} s, cluster "
         f"{res['convert_cluster_s']:.2f} s), ")
     peaks = ", ".join(f"{k} {v:.2f}" for k, v in res["peak_gb"].items())
+    prompt = argv[argv.index("--prompt-len") + 1]
     print(f"[e2e {tag}] static: {convert}prefill {res['prefill_ms']:.2f} ms "
-          f"({BATCH}x{L4_PROMPT}, median of {serve.PREFILL_REPEATS} warm), "
+          f"({BATCH}x{prompt}, median of {serve.PREFILL_REPEATS} warm), "
           f"decode {res['decode_tok_s']:.1f} tok/s ({BATCH} lanes, "
           f"{GEN - 1} steps), peak GB after {peaks}, launches {launches}")
-    kernel_routes(f"phase 5e {tag} static bf16", "tensor_core")
+    kernel_routes(f"phase {phase} {tag} static bf16", "tensor_core")
     return res, launches
 
 
@@ -3067,7 +3193,7 @@ def llama4_phase(records: dict) -> dict:
     prompts = torch.as_tensor(np.random.default_rng(0).integers(
         0, base.vocab_size, (BATCH, L4_PROMPT)), dtype=torch.long,
         device="cuda")
-    res, launches["static"] = llama4_static(L4_ARGS, "llama4")
+    res, launches["static"] = static_run(L4_ARGS, "llama4", "5e")
     ref_logits = res["prefill_logits"]          # on the host
     model, params = res["model"], res["params"]
     host_ms = {"prefill": res["prefill_ms"],
@@ -3081,8 +3207,8 @@ def llama4_phase(records: dict) -> dict:
     del model, params
     free_device("phase 5e's conversion")
 
-    res, launches["hierarchical_static"] = llama4_static(
-        L4_ARGS + ["--cmoe", L4_CMOE], "llama4 hierarchical")
+    res, launches["hierarchical_static"] = static_run(
+        L4_ARGS + ["--cmoe", L4_CMOE], "llama4 hierarchical", "5e")
     model, params = res["model"], res["params"]
     host_ms = {"prefill": res["prefill_ms"],
                "decode": 1e3 * BATCH / res["decode_tok_s"]}
@@ -3118,6 +3244,258 @@ def llama4_phase(records: dict) -> dict:
         ("swiglu_ffn", "moe_gmm_ragged", "moe_gather", "paged_attn_decode"))
     del model, params
     free_device("the phases after 5e")
+    return launches
+
+
+def dense_f32_agreement(arch: str, key: str) -> dict:
+    """Phase 8a for one arch: its published widths in float32, cut to
+    DENSE_F32_LAYERS layers, the kernel path (swiglu_ffn for a GLU FFN,
+    paged_attn_decode) against the plain path on one set of weights
+    through Model.step on a paged cache (paged_agreement); internvl2's
+    prefill carries VLM_PATCHES random patch embeddings before PROMPT text
+    tokens. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import override
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    cfg = override(get_config(arch), dtype="float32",
+                   num_layers=DENSE_F32_LAYERS)
+    k_model = build_model(cfg, use_kernel=True, device=dev)
+    p_model = build_model(cfg, use_kernel=False, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = k_model.init(gen)
+    extras, patches = None, 0
+    if cfg.family == "vlm":
+        patches = VLM_PATCHES
+        width = cfg.vision.d_patch or cfg.d_model
+        extras = {"patches": torch.randn((BATCH, patches, width),
+                                         generator=gen, device=dev)}
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, patches + PROMPT)), dtype=torch.long,
+        device=dev)
+    paged_agreement(k_model, p_model, params, prompts, gen, f"{key} f32",
+                    extras=extras)
+    launches = dict(ops.LAUNCHES)
+    want = ["paged_attn_decode"]
+    if cfg.activation in ("swiglu", "geglu"):
+        want.append("swiglu_ffn")
+    for name in want:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{key} f32 kernel path: {launches}")
+    kernel_routes(f"phase 8a {key} f32 kernel path", "simt")
+    return launches
+
+
+def paged_step_check(model, params, records: dict, key: str,
+                     seq: int = PAGED_STEP_DEPTH) -> None:
+    """paged_attn_decode on the inputs a paged decode step of `model` gives
+    its first layer: BATCH lanes prefilled to `seq` tokens through
+    fragmented block tables, then one decode step (the engine's Model.step
+    with block tables). Held against the plain version, timed back to back
+    and in a CUDA graph beside the bound of the K/V rows in the layer's
+    window; the record goes under records["paged_attn_decode"][key]. Where
+    the window is shorter than the depth, the step also reports how far
+    the plain version without the window lies from the windowed one."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attn_decode_plain
+
+    dev = torch.device("cuda")
+    rows, bs = BATCH, 16
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    nblk = -(-(seq + 1) // bs)
+    table = (torch.randperm(rows * nblk, generator=g, device=dev) + 1
+             ).reshape(rows, nblk).to(torch.int32)
+    pool = model.init_paged_cache(1 + rows * nblk, bs)
+    prompts = torch.randint(0, model.cfg.vocab_size, (rows, seq),
+                            generator=g, device=dev)
+    model.step(params, prompts, pool, torch.zeros((rows,), dtype=torch.int32,
+                                                  device=dev),
+               block_tables=table)
+    _, (args, kw), _ = capture_call("paged_attn_decode", lambda: model.step(
+        params, prompts[:, -1:], pool,
+        torch.full((rows,), seq, dtype=torch.int32, device=dev),
+        block_tables=table))
+    q, kp, vp = args
+    kh, hd = kp.shape[2:]
+    grp = q.shape[2] // kh
+    got = ops.paged_attn_decode(*args, **kw)
+    err = check(f"paged_attn_decode {model.cfg.name} decode step (rows "
+                f"{rows}, {kh} kv heads x {grp} of {hd}, depth {seq + 1}, "
+                f"window {kw['window']})", got,
+                paged_attn_decode_plain(q, kp, vp, kw["table"], kw["pos"],
+                                        kw["window"], scale=kw["scale"]),
+                torch.bfloat16)
+    live = seq + 1
+    keys = live
+    if 0 < kw["window"] < live:
+        keys = kw["window"]
+        full = paged_attn_decode_plain(q, kp, vp, kw["table"], kw["pos"],
+                                       scale=kw["scale"]).float()
+        moved = (full - got.float()).abs().max().item()
+        if moved == 0:
+            raise AssertionError(f"{key}: the window masked nothing")
+        print(f"[window] {model.cfg.name} layer 0 reads the last {keys} of "
+              f"{live} keys; the plain version without the window lies "
+              f"{moved:.3e} from the kernel (max|err| {err:.3e} with it)")
+    nbytes = (2 * rows * keys * kh * hd * 2 + 2 * rows * kh * grp * hd * 2
+              + rows * (nblk + 1) * 4)
+    b_ms, b_by = bound(4 * rows * keys * kh * grp * hd, nbytes, "bfloat16")
+
+    def kernel(*a):
+        return ops.paged_attn_decode(*a, **kw)
+    rec = dict(shape=f"rows={rows} kh={kh} grp={grp} hd={hd} bs={bs} "
+                     f"depth={live} window={kw['window']}",
+               max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+               ms=time_ms(kernel, [args]), graph_ms=graph_ms(kernel, [args]),
+               plain_ms=time_ms(lambda *a: paged_attn_decode_plain(
+                   *a, kw["table"], kw["pos"], kw["window"],
+                   scale=kw["scale"]), [args], iters=10))
+    records["paged_attn_decode"][key] = rec
+    print(f"[time] paged_attn_decode {model.cfg.name} decode step "
+          f"({rec['shape']}): {rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms "
+          f"in a CUDA graph), plain {rec['plain_ms']:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    del pool
+    torch.cuda.synchronize()
+
+
+def decode_share(model, params, prompts, module, name: str, busy_ms: float,
+                 host_ms: float, what: str) -> None:
+    """The share of a static decode step (a lane for each prompt, after
+    their prefill) that the calls of <module>.<name> take: the step's calls
+    counted, the first call's inputs timed with CUDA events, times the
+    count, against the step's device time (`busy_ms`, from step_trace) and
+    its time on the host's clock (`host_ms`)."""
+    import torch
+    seq = prompts.shape[1]
+    _, cache = model.prefill(params, {"tokens": prompts}, max_len=seq + 1)
+    fn = getattr(module, name)
+    _, (args, kwargs), calls = capture_call(name, lambda: model.decode_step(
+        params, prompts[:, -1:], cache, seq), module=module)
+    del cache
+    ms = time_ms(lambda *a: fn(*a, **kwargs), [list(args)], iters=10)
+    total = ms * calls
+    print(f"[share] {what}: {calls} call(s) of {name} in a decode step, "
+          f"{ms:.4f} ms each, {total:.3f} ms: {total / busy_ms:.2f} of the "
+          f"step's {busy_ms:.2f} ms of device time, {total / host_ms:.2f} of "
+          f"its {host_ms:.2f} ms on the host's clock")
+    torch.cuda.synchronize()
+
+
+def dense_arch_phase(arch: str, key: str, layers: Optional[int],
+                     records: dict) -> dict:
+    """Phase 8 for one arch at its published widths, bfloat16, `layers`
+    deep (None: all): (a) dense_f32_agreement at DENSE_F32_LAYERS; (b) the
+    CLI's static path unconverted (the reference logits), with swiglu_ffn
+    (phi3, gemma3) and paged_attn_decode on the inputs the path gives them
+    (gemma3's again at WINDOW_STEP_DEPTH, past its sliding window);
+    (c) the CLI's static path with --cmoe DENSE_CMOE (the conversion's
+    seconds and the peak memory after init, conversion and serving), the
+    device time of a converted prefill and decode step by kernel (phi3,
+    gemma3, granite), gemma3's float32 LM head's share of a decode step and
+    granite's plain non-GLU gather's, moe_gmm_ragged and moe_gather on
+    their inputs (phi3, gemma3); (d) the engine on the converted model with
+    phase 4's engine flags. Launch counts are zeroed before each run and
+    read after: the GLU archs launch every FFN kernel; granite's GELU FFN
+    runs plain products, as the reference's GLU-only kernels imply, and
+    launches none. Returns the launch counts by run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import experts
+    from repro_torch.models import model as model_mod
+
+    base = get_config(arch)
+    glu = base.activation in ("swiglu", "geglu")
+    ffn = ("swiglu_ffn", "moe_gmm_ragged", "moe_gather")
+    depth = f"all {base.num_layers} layers" if layers is None else \
+        f"depth {base.num_layers} -> {layers} layers"
+    print(f"[cut] {arch}: {depth} (phase 8, bfloat16; {DENSE_F32_LAYERS} "
+          f"in float32); every width as "
+          f"published (d_model {base.d_model}, {base.num_heads} heads on "
+          f"{base.num_kv_heads} kv heads of {base.resolved_head_dim}, d_ff "
+          f"{base.d_ff} {base.activation}, vocab {base.vocab_size}"
+          f"{', tied' if base.tie_embeddings else ''})")
+    free_device(f"phase 8 {key}")
+    launches = {"f32": dense_f32_agreement(arch, key)}
+    free_device(f"phase 8 {key} bf16")
+
+    def no_ffn_kernel(run: str) -> None:
+        if not glu and any(launches[run][n] for n in ffn):
+            raise AssertionError(f"{key} {run}: a GLU-only FFN kernel ran "
+                                 f"on a {base.activation} FFN: "
+                                 f"{launches[run]}")
+
+    no_ffn_kernel("f32")
+    argv = ["--arch", arch] + ([] if layers is None else
+                               ["--layers", str(layers)]) + \
+        ["--batch", str(BATCH), "--prompt-len", str(PROMPT), "--gen",
+         str(GEN), "--seed", "0"]
+    res, launches["dense_static"] = static_run(
+        argv, key, "8b", want=ffn[:1] if glu else (),
+        backends={"prefill": None, "decode": None})
+    no_ffn_kernel("dense_static")
+    ref_logits = res["prefill_logits"]
+    model, params = res["model"], res["params"]
+    del res
+    # serve.run's prompts
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.vocab_size, (BATCH, PROMPT)), dtype=torch.long,
+        device="cuda")
+    if glu and key != "internvl2":
+        swiglu_check(model, params, prompts, records, key)
+    paged_step_check(model, params, records, key)
+    if base.sliding_window:
+        paged_step_check(model, params, records, f"{key}_window",
+                         seq=WINDOW_STEP_DEPTH)
+    del model, params
+    free_device(f"phase 8 {key}'s conversion")
+
+    res, launches["static"] = static_run(
+        argv + ["--cmoe", DENSE_CMOE], f"{key} cmoe", "8c",
+        want=ffn if glu else (),
+        backends={"prefill": "grouped_kernel" if glu else "grouped_plain",
+                  "decode": "gather"})
+    no_ffn_kernel("static")
+    model, params = res["model"], res["params"]
+    host_ms = {"prefill": res["prefill_ms"],
+               "decode": 1e3 * BATCH / res["decode_tok_s"]}
+    agree = int((res["prefill_logits"].argmax(-1) ==
+                 ref_logits.argmax(-1)).sum())
+    print(f"[e2e {key} cmoe] first greedy token as unconverted "
+          f"{agree}/{BATCH}")
+    del res
+    if key != "internvl2":
+        busy = step_trace(model, params, prompts, host_ms, f"{key} cmoe")
+        if key == "gemma3":
+            decode_share(model, params, prompts, model_mod, "unembed",
+                         busy["decode"], host_ms["decode"],
+                         "gemma3 cmoe float32 LM head (unembed)")
+        if key == "granite":
+            decode_share(model, params, prompts, experts, "_gather",
+                         busy["decode"], host_ms["decode"],
+                         "granite cmoe plain non-GLU gather (routed experts)")
+    if glu and key != "internvl2":
+        ragged_check(model, params, prompts, records, f"{key}_cmoe")
+        gather_check(model, params, prompts, records, f"{key}_cmoe")
+    launches["engine"] = engine_run(
+        model, params, f"{key} cmoe", "8d",
+        ("moe_gmm_ragged", "moe_gather", "paged_attn_decode") if glu
+        else ("paged_attn_decode",))
+    no_ffn_kernel("engine")
+    del model, params
+    free_device(f"the phases after 8 {key}")
     return launches
 
 
@@ -3446,6 +3824,15 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.launch import serve
 
+    start = last = time.perf_counter()
+
+    def took(phase: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        print(f"[seconds] phase {phase}: {now - last:.1f} s ({now - start:.1f}"
+              f" s since the start)")
+        last = now
+
     # phase 1: device and build
     smi = nvidia_smi()
     print(f"[device] {torch.cuda.get_device_name(0)}, torch "
@@ -3459,9 +3846,11 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
     tensor_core_report()
+    took("1")
 
     # phase 2: kernels against their plain versions, then timed
     records = kernel_phase()
+    took("2")
     if args.kernels_only:
         print(smi)
         print(json.dumps({"kernels": list(records.values())}))
@@ -3502,6 +3891,7 @@ def main(argv=None) -> int:
                                  f"static path")
         records[name]["launches_static"] = launches[name]
     del res                       # it holds the converted model and params
+    took("3")
 
     # phase 4: the continuous-batching engine, paged, overlapped
     width_invariance()
@@ -3512,6 +3902,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"engine's path")
         records[name]["launches"] = launches[name]
+    took("4")
 
     # phase 5: deepseek-v2 at full width, cut in depth, with path A (the
     # bounded-buffer expert path) on the f32 and the bf16 model
@@ -3533,6 +3924,7 @@ def main(argv=None) -> int:
         for name in ("swiglu_ffn", "moe_gmm_ragged", "moe_gather",
                      "paged_attn_decode"):
             records[name][f"launches_llama4_{run}"] = counts[name]
+    took("5")
 
     # phase 6: mamba2-370m and zamba2-1.2b at full width and depth
     for arch in SSM_ARCHS:
@@ -3542,11 +3934,23 @@ def main(argv=None) -> int:
     launches = ssm_serving("zamba2-1.2b")
     records["ssd_scan"]["launches_zamba2"] = launches["ssd_scan"]
     records["swiglu_ffn"]["launches_zamba2"] = launches["swiglu_ffn"]
+    took("6")
 
     # phase 7: the attention pair at llama2-7b's full width
     launches = attention_pair()
     for name in ("flash_attention", "flash_decode"):
         records[name]["launches"] = launches[name]
+    took("7")
+
+    # phase 8: the last decoder-only archs at full width, unconverted and
+    # converted, static and by the engine
+    for arch, key, layers in DENSE_ARCHS:
+        for run, counts in dense_arch_phase(arch, key, layers,
+                                            records).items():
+            for name in ("swiglu_ffn", "moe_gmm_ragged", "moe_gather",
+                         "paged_attn_decode"):
+                records[name][f"launches_{key}_{run}"] = counts[name]
+        took(f"8 {key}")
 
     print(smi)
     print(json.dumps({"kernels": list(records.values())}))

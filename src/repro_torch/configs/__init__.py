@@ -1,9 +1,11 @@
 """Architecture registry. Each module exposes config() and smoke_config().
 
-The port lists every arch of the JAX package, but only the dense GQA
-SwiGLU family, deepseek-v2's MLA + pretrained MoE, llama4's interleaved
-dense / GQA-MoE stack, and the Mamba2 SSM and zamba2 hybrid families run
-here so far; the others raise until their slice lands.
+The port lists every arch of the JAX package and runs all but the
+enc-dec family: the dense GQA decoders (SwiGLU, gemma3's GEGLU with
+sliding windows, granite's GELU MQA), internvl2's VLM (dense blocks behind
+a patch prefix), deepseek-v2's MLA + pretrained MoE, llama4's interleaved
+dense / GQA-MoE stack, and the Mamba2 SSM and zamba2 hybrid families.
+whisper-small raises until its slice lands.
 """
 from __future__ import annotations
 
@@ -23,13 +25,17 @@ ARCHS = {
     # attention-free Mamba2 (SSD) and the Mamba2 + shared-attention hybrid
     "mamba2-370m": "mamba2_370m",
     "zamba2-1.2b": "zamba2_1_2b",
+    # the other dense decoders: SwiGLU GQA; GEGLU with 5:1 local:global
+    # sliding windows and a tied 262k head; GELU MQA (one kv head)
+    "phi3-medium-14b": "phi3_medium_14b",
+    "gemma3-4b": "gemma3_4b",
+    "granite-34b": "granite_34b",
+    # dense blocks behind a prefix of (stub) vision patch embeddings
+    "internvl2-26b": "internvl2_26b",
 }
 
 # archs of the JAX package whose families the port does not run yet
-NOT_PORTED = (
-    "granite-34b", "gemma3-4b", "phi3-medium-14b", "whisper-small",
-    "internvl2-26b",
-)
+NOT_PORTED = ("whisper-small",)
 
 
 def _module(arch: str):

@@ -4,8 +4,10 @@
 Per FFN layer: capture the pre-FFN activations on the calibration batch
 (on the model's device, through the dense FFN kernel when the model runs
 kernels), compute the hidden states and the ATopK profile on the device,
-partition on the host (shared by rate, routed by balanced clustering), and
-slice the original weights into the CMoE tree with its analytical router.
+partition on the host (shared by rate, routed by balanced clustering; the
+layers' partitions on a thread pool), and slice the original weights into
+the CMoE tree with its analytical router, written over the original FFN's
+storage.
 """
 from __future__ import annotations
 
@@ -15,10 +17,11 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.config import CMoEConfig
-from repro_torch.core.partition import build_cmoe_params, partition_neurons
+from repro_torch.core.partition import (build_cmoe_params, converted_views,
+                                        partition_profiles)
 from repro_torch.core.profiling import profile_hidden
 from repro_torch.models.layers import ffn_hidden
-from repro_torch.models.model import Model, build_model, tree_map, tree_stack
+from repro_torch.models.model import Model, build_model, tree_stack
 
 
 @dataclass
@@ -46,38 +49,68 @@ def check_convertible(cfg) -> None:
 
 def convert_dense_model(model: Model, params: dict, calib_batch: dict,
                         cm: CMoEConfig):
-    """Convert every FFN layer. Returns (cmoe_model, cmoe_params, report)."""
+    """Convert every FFN layer. Returns (cmoe_model, cmoe_params, report).
+
+    The converted tree is a permutation of each layer's neurons (shared
+    experts first, then the routed ones), so its banks are written over the
+    storage of the original FFN, layer by layer: every layer's profile is
+    taken first, the partitions run on a thread pool, and then each layer's
+    tree is sliced from its original weights (one layer's copy) and written
+    back over its own region. The peak is the model plus one layer's FFN
+    and the calibration taps. ``params`` gives up its FFN weights: they
+    are removed from its ``blocks["ffn"]``; clone the params first if the
+    dense model is still needed."""
     cfg = model.cfg
     check_convertible(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(f"conversion of family {cfg.family!r} is "
                                   f"not ported yet")
     t0 = time.perf_counter()
     taps = model.ffn_inputs(params, calib_batch)             # (L, B, S, d)
     l, b, s, d = taps.shape
     x_all = taps.reshape(l, b * s, d)
-    if x_all.is_cuda:
-        torch.cuda.synchronize(x_all.device)
+    blocks = params["blocks"]
+    ffn = blocks["ffn"]
+    profiles = []
+    for li in range(l):
+        h = ffn_hidden(x_all[li], {n: w[li] for n, w in ffn.items()},
+                       cfg.activation)
+        a, mu = profile_hidden(h, cm.k_activation)
+        profiles.append((a.cpu().numpy(), mu.cpu().numpy()))
+    del taps, x_all
     t_profile = time.perf_counter() - t0
 
-    blocks = params["blocks"]
-    cmoe_layers, parts = [], []
     t1 = time.perf_counter()
-    for li in range(l):
-        ffn_l = tree_map(lambda a: a[li], blocks["ffn"])
-        h = ffn_hidden(x_all[li], ffn_l, cfg.activation)
-        a, mu = profile_hidden(h, cm.k_activation)
-        part = partition_neurons(a.cpu().numpy(), mu.cpu().numpy(), cm)
-        cmoe_layers.append(build_cmoe_params(ffn_l, part, cm,
-                                             cfg.activation))
-        parts.append(part)
+    parts = partition_profiles(profiles, cm)
     t_cluster = time.perf_counter() - t1
+    del profiles
+
+    banks = {n: ffn.pop(n).contiguous() for n in list(ffn)}
+    ms = cm.num_shared * (banks["wd"].shape[1] // cm.num_experts)
+    # each (L, d, d_h) / (L, d_h, d) bank as a one-expert MoE bank
+    views = {n: tuple(v[:, 0] for v in converted_views(
+        w.unsqueeze(1), ms, cm.num_routed, n == "wd"))
+        for n, w in banks.items()}
+    small = []                                   # router, u, bias per layer
+    for li, part in enumerate(parts):
+        conv = build_cmoe_params({n: w[li] for n, w in banks.items()}, part,
+                                 cm, cfg.activation)
+        for n, (shared, routed) in views.items():
+            shared[li] = conv["shared"][n]
+            routed[li] = conv["routed"][n]
+        small.append({k: conv[k] for k in ("router", "u", "bias")})
+        del conv
+    cmoe = tree_stack(small)
+    cmoe["shared"] = {n: v[0] for n, v in views.items()}
+    cmoe["routed"] = {n: v[1] for n, v in views.items()}
 
     new_blocks = {k: v for k, v in blocks.items() if k != "ffn"}
-    new_blocks["cmoe"] = tree_stack(cmoe_layers)
+    new_blocks["cmoe"] = cmoe
     new_params = {**params, "blocks": new_blocks}
     new_model = build_model(cfg.with_cmoe(cm), use_kernel=model.use_kernel,
                             backend=model.backend, device=model.device)
+    if banks["wd"].is_cuda:
+        torch.cuda.synchronize(banks["wd"].device)
     report = ConversionReport(seconds_total=time.perf_counter() - t0,
                               seconds_profile=t_profile,
                               seconds_cluster=t_cluster, num_layers=l,

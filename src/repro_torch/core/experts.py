@@ -322,33 +322,24 @@ def _gather(xf, weights, gates, idx, activation, valid, *,
             use_kernel: bool = False):
     """Compute ONLY the selected experts: T*k independent rows. Glu banks
     go through ``moe_gather`` (the CUDA kernel with ``use_kernel``, else
-    its plain version), which gives the sentinel id an exact zero row; the
-    non-glu plain path gathers each row's weight slabs here. The
-    gate-weighted combine is shared."""
+    its plain version), which gives the sentinel id an exact zero row. A
+    non-glu bank (the kernels are glu-only) runs ``grouped_plain``, so a
+    row gets the bits it gets there: the overlapped engine's fused steps
+    run grouped where the sequential steps gather."""
+    if not _is_glu(weights):
+        return _grouped(xf, weights, gates, idx, activation, valid,
+                        use_kernel=False)[0]
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.moe_gather import moe_gather_plain
     t, k = idx.shape
-    d = xf.shape[1]
-    flat = idx.reshape(-1)
-    if _is_glu(weights):
-        from repro_torch.kernels import ops as kops
-        from repro_torch.kernels.moe_gather import moe_gather_plain
-        fn = kops.moe_gather if use_kernel else moe_gather_plain
-        y = fn(xf, flat, *(weights[n].to(xf.dtype) for n in ("wg", "wu",
-                                                               "wd")),
-               top_k=k, activation=activation)
-    else:
-        # the sentinel id E is clamped onto a live slab; its zeroed gate
-        # erases the contribution exactly
-        n_e = weights["wd"].shape[0]
-        flat_c = flat.clamp(max=n_e - 1)
-        xr = xf.repeat_interleave(k, dim=0).float().unsqueeze(1)  # (n,1,d)
-        g = torch.bmm(xr, weights["wi"][flat_c].to(xf.dtype).float())
-        h = _act(activation)(g).to(xf.dtype)
-        wd = weights["wd"][flat_c].to(xf.dtype).float()
-        y = torch.bmm(h.float(), wd).squeeze(1).to(xf.dtype)
+    fn = kops.moe_gather if use_kernel else moe_gather_plain
+    y = fn(xf, idx.reshape(-1), *(weights[n].to(xf.dtype)
+                                  for n in ("wg", "wu", "wd")),
+           top_k=k, activation=activation)
     w = gates.to(xf.dtype)
     if valid is not None:
         w = w * valid.to(xf.dtype)
-    return (y.reshape(t, k, d) * w[..., None]).sum(dim=1)
+    return (y.reshape(t, k, -1) * w[..., None]).sum(dim=1)
 
 
 def _grouped(xf, weights, gates, idx, activation, valid, *, use_kernel):

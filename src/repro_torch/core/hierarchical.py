@@ -23,9 +23,7 @@ llama4's, converts its ``blocks_moe`` and keeps its dense layers dense).
 """
 from __future__ import annotations
 
-import os
 import time
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional
 
@@ -36,7 +34,8 @@ from repro_torch.core.experts import (RAGGED_BLOCK_PLAIN, dropped_pairs,
                                       ragged_combine, ragged_layout,
                                       ragged_scatter, routed_experts,
                                       segment_dot)
-from repro_torch.core.partition import build_cmoe_params, partition_neurons
+from repro_torch.core.partition import (build_cmoe_params, converted_views,
+                                        partition_neurons, partition_profiles)
 from repro_torch.core.profiling import profile_hidden
 from repro_torch.core.router import top_k_lower_first
 from repro_torch.models.layers import ffn_hidden, gelu, matmul, swish
@@ -72,43 +71,6 @@ def convert_expert(wg_e, wu_e, wd_e, x_calib, cm: CMoEConfig,
     return build_cmoe_params(ffn_e, part, cm, activation), part
 
 
-def partition_experts(profiles: list, cm: CMoEConfig) -> list:
-    """``partition_neurons`` of every (a, mu) host profile, on a thread per
-    core (the LAP solver releases the GIL). Each partition is a function of
-    its own profile only, so the result is the serial loop's."""
-    workers = min(len(profiles), len(os.sched_getaffinity(0)))
-    with ThreadPoolExecutor(max(workers, 1)) as pool:
-        return list(pool.map(lambda am: partition_neurons(*am, cm),
-                             profiles))
-
-
-def _converted_views(bank: torch.Tensor, ms: int, n_r: int, down: bool):
-    """The converted (L, E, d, ms) shared and (L, E, N_r', d, m') routed
-    banks (for ``down`` (L, E, ms, d) / (L, E, N_r', m', d)) laid over the
-    storage of the original (L, E, d, m) / (L, E, m, d) bank: layer l's
-    converted pair fills exactly layer l's original region (ms + N_r' m' =
-    m), shared first, so each layer's slice of either view is contiguous."""
-    lyr, e = bank.shape[:2]
-    d = bank.shape[3] if down else bank.shape[2]
-    m = bank.shape[2] if down else bank.shape[3]
-    mr = (m - ms) // n_r
-    per_layer = e * d * m
-    off = bank.storage_offset()
-    if down:
-        shared = bank.as_strided((lyr, e, ms, d), (per_layer, ms * d, d, 1),
-                                 off)
-        routed = bank.as_strided((lyr, e, n_r, mr, d),
-                                 (per_layer, n_r * mr * d, mr * d, d, 1),
-                                 off + e * ms * d)
-    else:
-        shared = bank.as_strided((lyr, e, d, ms), (per_layer, d * ms, ms, 1),
-                                 off)
-        routed = bank.as_strided((lyr, e, n_r, d, mr),
-                                 (per_layer, n_r * d * mr, d * mr, mr, 1),
-                                 off + e * d * ms)
-    return shared, routed
-
-
 def convert_moe_model(model: Model, params: dict, calib_batch: dict,
                       cm: CMoEConfig):
     """Hierarchically convert every routed expert of every MoE layer.
@@ -136,7 +98,7 @@ def convert_moe_model(model: Model, params: dict, calib_batch: dict,
     banks = {n: moe.pop(n).contiguous() for n in BANKS}
     e, _, m = banks["wg"].shape[1:]
     ms = cm.num_shared * (m // cm.num_experts)
-    views = {n: _converted_views(banks[n], ms, cm.num_routed, n == "wd")
+    views = {n: converted_views(banks[n], ms, cm.num_routed, n == "wd")
              for n in BANKS}
     small = []                                   # router, u, bias per layer
     t_profile = time.perf_counter() - t0
@@ -148,7 +110,7 @@ def convert_moe_model(model: Model, params: dict, calib_batch: dict,
                                    x_all[li], cm, cfg.activation)
                     for ei in range(e)]
         t2 = time.perf_counter()
-        parts = partition_experts(profiles, cm)
+        parts = partition_profiles(profiles, cm)
         t3 = time.perf_counter()
         t_profile += t2 - t1
         t_cluster += t3 - t2

@@ -9,6 +9,8 @@ reproduces the dense output.
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -88,3 +90,41 @@ def build_cmoe_params(ffn: dict, part: PartitionResult, cm: CMoEConfig,
     zeros = torch.zeros((cm.num_routed,), dtype=torch.float32, device=dev)
     return {"shared": shared, "routed": routed, "router": router,
             "u": zeros, "bias": zeros.clone()}
+
+
+def partition_profiles(profiles: list, cm: CMoEConfig) -> list:
+    """``partition_neurons`` of every (a, mu) host profile (one per layer,
+    or per expert of a MoE layer), on a thread per core (the LAP solver
+    releases the GIL). Each partition is a function of its own profile
+    only, so the result is the serial loop's."""
+    workers = min(len(profiles), len(os.sched_getaffinity(0)))
+    with ThreadPoolExecutor(max(workers, 1)) as pool:
+        return list(pool.map(lambda am: partition_neurons(*am, cm),
+                             profiles))
+
+
+def converted_views(bank: torch.Tensor, ms: int, n_r: int, down: bool):
+    """The converted (L, E, d, ms) shared and (L, E, N_r', d, m') routed
+    banks (for ``down`` (L, E, ms, d) / (L, E, N_r', m', d)) laid over the
+    storage of the original (L, E, d, m) / (L, E, m, d) bank: layer l's
+    converted pair fills exactly layer l's original region (ms + N_r' m' =
+    m), shared first, so each layer's slice of either view is contiguous."""
+    lyr, e = bank.shape[:2]
+    d = bank.shape[3] if down else bank.shape[2]
+    m = bank.shape[2] if down else bank.shape[3]
+    mr = (m - ms) // n_r
+    per_layer = e * d * m
+    off = bank.storage_offset()
+    if down:
+        shared = bank.as_strided((lyr, e, ms, d), (per_layer, ms * d, d, 1),
+                                 off)
+        routed = bank.as_strided((lyr, e, n_r, mr, d),
+                                 (per_layer, n_r * mr * d, mr * d, d, 1),
+                                 off + e * ms * d)
+    else:
+        shared = bank.as_strided((lyr, e, d, ms), (per_layer, d * ms, ms, 1),
+                                 off)
+        routed = bank.as_strided((lyr, e, n_r, d, mr),
+                                 (per_layer, n_r * d * mr, d * mr, mr, 1),
+                                 off + e * d * ms)
+    return shared, routed

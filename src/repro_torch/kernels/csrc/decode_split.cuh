@@ -63,12 +63,13 @@
 //    call, paged or contiguous, through a narrow or a wide table, agree
 //    bitwise, which the serving engine's parity gates rest on
 //    (models/attention.py rows_attention).
-//  * Query-head groups. Every ported arch has one query head per kv head
-//    and one query row, so there is no product for the tensor cores here;
-//    wider groups (granite's 48 per kv head) are sliced over blocks of at
-//    most 8 heads whose queries sit in registers, each head with its own
-//    softmax, so a head's arithmetic does not depend on its slice. mma.sync
-//    over a group of 8 or more is later work.
+//  * Query-head groups. A decode step has one query row, and the served
+//    groups run from 1 to 48 query heads a kv head (granite's MQA), so
+//    the products here run as SIMT arithmetic: groups wider than one are
+//    sliced over blocks of at most 8 heads whose queries sit in registers,
+//    each head with its own softmax, so a head's arithmetic does not
+//    depend on its slice. mma.sync over a group of 8 or more is later
+//    work.
 #pragma once
 
 #include <cuda_bf16.h>

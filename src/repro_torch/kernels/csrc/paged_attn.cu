@@ -23,8 +23,10 @@
 // contiguous cache (a pool of one block per lane) give bitwise the same
 // output, as do a row alone and inside a call of many rows. Query-head
 // groups of any width are sliced over blocks of at most 8 heads (granite's
-// 48 per kv head of 128 is 6 slices). Every ported arch has grp 1, so no
-// product here is large enough for the tensor cores.
+// 48 per kv head of 128 is 6 slices). The served archs' groups run from
+// 1 (qwen, llama2) through 2 (gemma3), 4 (phi3), 5 (llama4) and 6
+// (internvl2) to 48 (granite, MQA); each slice's products run as SIMT
+// arithmetic, not on the tensor cores.
 #include "decode_split.cuh"
 
 // q: (rows, kh * grp, hd); k_pool / v_pool: (nblocks, bs, kh, hd); table:

@@ -22,6 +22,7 @@ hierarchically (``core.hierarchical``: each routed expert split into
 shared and routed sub-experts), after the ``--layers`` cut; the ``--smoke --continuous``
 default (``--cmoe S2A2E8``) does so too, and ``--tier`` then sets the
 sub-level k.
+The VLM arch (internvl2-26b) is served text-only, as in the reference.
 The SSM and hybrid archs (mamba2-370m, zamba2-1.2b) serve statically only,
 as in the reference: ``--cmoe`` (conversion does not apply to them) and
 ``--continuous`` (the engine needs a positional KV cache) are refused.
@@ -32,6 +33,9 @@ as in the reference: ``--cmoe`` (conversion does not apply to them) and
         --cmoe S3A3E8
     python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \
         --layers 2 --cmoe S3A3E8 --continuous --paged --parity
+    python -m repro_torch.launch.serve --arch phi3-medium-14b --cmoe S3A3E8
+    python -m repro_torch.launch.serve --arch granite-34b --layers 8 \
+        --cmoe S3A3E8 --continuous --paged --parity
     python -m repro_torch.launch.serve --arch mamba2-370m
     python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
     python -m repro_torch.launch.serve --smoke --cmoe S3A3E8 --device cpu

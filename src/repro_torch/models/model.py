@@ -1,9 +1,10 @@
-"""Model facade for the dense decoder family, llama4 (dense and GQA + MoE
-layers interleaved, the MoE pretrained or hierarchically converted),
+"""Model facade for the dense decoder family, the VLM family (dense blocks
+behind a prefix of patch embeddings, internvl2), llama4 (dense and GQA +
+MoE layers interleaved, the MoE pretrained or hierarchically converted),
 deepseek-v2 (MLA + the pretrained MoE, or its hierarchical CMoE
 conversion), Mamba2 (SSM) and the zamba2 hybrid.
 
-Port of the dense, moe, mla_moe, ssm and hybrid paths of
+Port of the dense, vlm, moe, mla_moe, ssm and hybrid paths of
 ``repro/models/model.py``. Parameters are nested dicts of tensors in the
 JAX layout: block leaves are stacked over layers as (L, ...) (llama4: a
 ``blocks_dense`` and a ``blocks_moe`` stack of L/2 layers each), and the
@@ -17,8 +18,7 @@ the shared attention block's k and v of (n_apps, B, T, KH, hd). llama4's
 cache is the flat (k, v) pair of L layers in model order, where the
 reference nests ((k_dense, v_dense), (k_moe, v_moe)) of L/2 each: period
 i's dense layer is layer 2i, its MoE layer 2i + 1. ``step`` updates every
-cache in place. Other families (enc-dec, VLM) are not ported yet and
-raise.
+cache in place. The enc-dec family is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.blocks import BlockCtx, block_kind
-from repro_torch.models.layers import embed, rms_norm, unembed
+from repro_torch.models.layers import embed, matmul, rms_norm, unembed
 from repro_torch.models.ssm import d_inner, num_ssm_heads
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -124,7 +124,8 @@ class Model:
                  backend: Optional[str] = None, device=None):
         self.kind = block_kind(cfg)
         moe_every = cfg.moe.moe_every if cfg.moe is not None else 1
-        dense = cfg.family == "dense" and cfg.moe is None and cfg.mla is None
+        dense = cfg.family in ("dense", "vlm") and cfg.moe is None and \
+            cfg.mla is None
         routed = self.kind in ("moe", "mla_moe") and moe_every == 1
         # llama4: dense and MoE layers interleaved (the reference's
         # _stack_interleaved, a scan over periods of one of each)
@@ -134,9 +135,9 @@ class Model:
         if not (dense or routed or self.interleaved or mamba):
             raise NotImplementedError(
                 f"family {cfg.family!r} (blocks {self.kind!r}) is not ported "
-                f"yet; the port runs the dense GQA decoder family, llama4's "
-                f"GQA + MoE, deepseek-v2's MLA + MoE, Mamba2 and the zamba2 "
-                f"hybrid")
+                f"yet; the port runs the dense GQA decoder and VLM families, "
+                f"llama4's GQA + MoE, deepseek-v2's MLA + MoE, Mamba2 and the "
+                f"zamba2 hybrid")
         if self.interleaved and (moe_every != 2 or cfg.num_layers % 2):
             raise ValueError(
                 f"{cfg.name}: an interleaved MoE stack runs periods of one "
@@ -186,13 +187,27 @@ class Model:
         if cfg.family == "hybrid":
             params["shared_attn"] = B.init_dense_block(cfg, dt, dev,
                                                        generator)
+        if cfg.family == "vlm" and cfg.vision and cfg.vision.d_patch:
+            params["vision_proj"] = (torch.randn(
+                (cfg.vision.d_patch, cfg.d_model), generator=generator,
+                dtype=torch.float32, device=dev) * cfg.vision.d_patch ** -0.5
+            ).to(dt)
         return params
 
     # ------------------------------------------------------------ stack
 
     def _embed(self, params, batch) -> torch.Tensor:
+        """Token embeddings; for the VLM family with ``batch["patches"]``
+        (B, P, d_patch) the patch embeddings (through ``vision_proj`` where
+        the params have one) take the place of the first P positions."""
         tokens = batch["tokens"] if "tokens" in batch else batch["token"]
-        return embed(tokens, params["embed"])
+        x = embed(tokens, params["embed"])
+        if self.cfg.family == "vlm" and "patches" in batch:
+            patches = batch["patches"].to(x.dtype)
+            if "vision_proj" in params:
+                patches = matmul(patches, params["vision_proj"])
+            x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
+        return x
 
     def _stack(self, params, x: torch.Tensor, *, caches=None,
                cache_pos=None, capture: bool = False,
@@ -373,7 +388,8 @@ class Model:
              block_tables: Optional[torch.Tensor] = None,
              row_slots: Optional[torch.Tensor] = None,
              row_k: Optional[torch.Tensor] = None,
-             backend: Optional[str] = None):
+             backend: Optional[str] = None,
+             extras: Optional[dict] = None):
         """The serving engine's one entry point: run tokens (B, S) against
         the cache, writing K/V in place.
 
@@ -389,7 +405,9 @@ class Model:
         pool of ``init_paged_cache``; ``row_slots`` (B,) makes a FUSED
         step over the contiguous cache (S must be 1, row r addresses lane
         row_slots[r]); ``row_k`` (B,) is the per-row routed top-k;
-        ``backend`` overrides the routed-expert backend for this call.
+        ``backend`` overrides the routed-expert backend for this call;
+        ``extras`` carries non-token inputs (the VLM family's patches) to
+        the embedder.
 
         Returns (logits (B, V) at each row's last valid position, cache),
         or with ``return_stats`` (logits, cache, {"dropped": device int}),
@@ -399,7 +417,7 @@ class Model:
         s = tokens.shape[1]
         if phase is None:
             phase = "decode" if s == 1 else "prefill"
-        x = self._embed(params, {"tokens": tokens})
+        x = self._embed(params, {**(extras or {}), "tokens": tokens})
         token_valid = None
         if lengths is not None:
             lengths = lengths.to(x.device)
@@ -425,12 +443,16 @@ class Model:
         return logits, cache
 
     def prefill(self, params, batch, *, max_len: Optional[int] = None):
-        """Forward filling a fresh cache. Returns (last-token logits (B, V),
-        cache)."""
+        """Forward filling a fresh cache; the batch's other entries (the VLM
+        family's patches) go to the embedder. Returns (last-token logits
+        (B, V), cache)."""
         tokens = batch["tokens"]
         bsz, seq = tokens.shape
         cache = self.init_cache(bsz, max_len or seq)
-        return self.step(params, tokens, cache, 0, phase="prefill")
+        extras = {k: v for k, v in batch.items() if k not in
+                  ("tokens", "token")}
+        return self.step(params, tokens, cache, 0, phase="prefill",
+                         extras=extras or None)
 
     def decode_step(self, params, token: torch.Tensor, cache, pos: int):
         """One decode step. token: (B, 1); pos: the index the new token is

@@ -366,8 +366,8 @@ class _InFlight:
 def check_servable(cfg, kind) -> None:
     """Raise unless the engine serves this model. As in the reference it
     needs a positional KV cache, which the SSM, hybrid and enc-dec families
-    lack; of the KV families, the port serves the dense, GQA-MoE (llama4)
-    and MLA ones."""
+    lack; of the KV families, the port serves the dense (and the VLM
+    family's dense blocks, text-only), GQA-MoE (llama4) and MLA ones."""
     if cfg.family in ("ssm", "hybrid", "audio"):
         raise NotImplementedError(
             f"serving engine needs a positional KV cache; family="

@@ -1243,3 +1243,155 @@ def test_cuda_llama4_moe_ffn_matches_plain(dtype, phase, t, want):
     _close(got, ref, dt)
     assert int(aux["dropped"]) == 0
     torch.cuda.synchronize()
+
+
+# phi3-medium-14b (d 5120, f 17920), gemma3-4b (GEGLU, d 2560, f 10240)
+# and internvl2-26b (d 6144, f 16384); their S3A3E8 routed experts (5 of m
+# f / 8) at a 4 x 32 prefill (top-3) and a 4-lane decode step
+DENSE_ARCH_FFNS = [(5120, 17920, "swiglu"), (2560, 10240, "geglu"),
+                   (6144, 16384, "swiglu")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 128])
+@pytest.mark.parametrize("d,f,act", DENSE_ARCH_FFNS)
+def test_cuda_dense_archs_swiglu_ffn_matches_plain(t, d, f, act):
+    """swiglu_ffn's bfloat16 route at the dense FFN widths of phi3, gemma3
+    (GEGLU) and internvl2, at a decode step and a 4 x 32 prefill."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.swiglu import ROUTE_LAUNCHES
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    x, wg, wu, wd = _bf16_case(g, dev, (t, d), (d, f), (d, f), (f, d))
+    tops.reset_launches()
+    got = tops.swiglu_ffn(x, wg, wu, wd, activation=act)
+    ref = swiglu_ffn_plain(x, wg, wu, wd, act)
+    torch.cuda.synchronize()
+    assert ROUTE_LAUNCHES == {"tensor_core": 1}
+    assert got.shape == (t, d) and got.dtype == torch.bfloat16
+    _close(got, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f,act", DENSE_ARCH_FFNS)
+def test_cuda_dense_archs_routed_experts_match_plain(d, f, act):
+    """The converted archs' routed experts (S3A3E8: 5 of m f / 8, top-3):
+    moe_gmm_ragged at a 4 x 32 prefill and moe_gather at a 4-lane decode
+    step with sentinel rows, each on the tensor cores against its plain
+    version; rows with no assignment exactly zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.moe_gather import \
+        ROUTE_LAUNCHES as GATHER_ROUTES
+    from repro_torch.kernels.moe_gmm import RAGGED_ROUTE_LAUNCHES
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(32)
+    e, k, m = 5, 3, f // 8
+    x, idx, bank = _routed_case(g, dev, 128, k, e, d, m)
+    tops.reset_launches()
+    _, got, xp, owner, live = _ragged_rows(x, idx, bank, act)
+    ref = moe_gmm_ragged_plain(xp, owner, *bank, act, 64)
+    torch.cuda.synchronize()
+    assert RAGGED_ROUTE_LAUNCHES == {"tensor_core": 1}
+    _close(got, ref, torch.bfloat16)
+    assert not got[~live].any()
+    flat = idx[:4].reshape(-1).to(torch.int32)
+    flat[2::5] = e                                # sentinels
+    got = tops.moe_gather(x[:4], flat, *bank, top_k=k, activation=act)
+    ref = moe_gather_plain(x[:4], flat, *bank, top_k=k, activation=act)
+    torch.cuda.synchronize()
+    assert GATHER_ROUTES == {"tensor_core": 1}
+    _close(got, ref, torch.bfloat16)
+    assert not got[flat == e].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kh,grp,hd,depth,window", [
+    (1, 48, 128, 80, 0),        # granite's engine step: MQA, 48 heads
+    (1, 48, 128, 1100, 0),      # granite past several 256-key chunks
+    (4, 2, 256, 80, 1024),      # gemma3's local layer at the engine's depth
+    (4, 2, 256, 1500, 1024),    # gemma3's window past the leading chunks
+    (4, 2, 256, 1500, 0),       # gemma3's global layer
+    (10, 4, 128, 300, 0),       # phi3
+    (8, 6, 128, 300, 0)])       # internvl2
+def test_cuda_paged_attn_dense_archs_match_plain(dtype, kh, grp, hd, depth,
+                                                 window):
+    """paged_attn_decode at the groupings of this slice's archs (granite's
+    48 query heads on one kv head of 128, gemma3's hd 256 with and without
+    its 1024-token window, phi3's 4 and internvl2's 6 query heads a kv
+    head), on fragmented tables with two rows sharing a lane, against its
+    plain version; and each row bitwise the same alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.paged_attention import paged_attn_decode_plain
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(33)
+    rows = 4
+    kp, vp, table = _pools(g, dev, dt, rows, depth, 16, (kh, hd))
+    table[1] = table[0]                          # two rows share a lane
+    pos = torch.tensor([depth, depth - 5, depth // 2, 3], dtype=torch.int32,
+                       device=dev)
+    q = torch.randn((rows, 1, kh * grp, hd), generator=g, device=dev).to(dt)
+    sc = hd ** -0.5
+    tops.reset_launches()
+    got = tops.paged_attn_decode(q, kp, vp, table=table, pos=pos,
+                                 window=window, scale=sc)
+    ref = paged_attn_decode_plain(q, kp, vp, table, pos, window, scale=sc)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["paged_attn_decode"] == 1
+    assert got.shape == q.shape and got.dtype == dt
+    _close_rows(got, ref, dt)
+    for i in range(rows):
+        one = tops.paged_attn_decode(q[i:i + 1], kp, vp, table=table[i:i + 1],
+                                     pos=pos[i:i + 1], window=window,
+                                     scale=sc)
+        assert torch.equal(one, got[i:i + 1]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_non_glu_gather_rows_are_the_grouped_rows(dtype):
+    """granite's converted experts (GELU {wi, wd}, S3A3E8: 5 of 3072 on d
+    6144, top-3) run the plain products on the card (the kernels are
+    GLU-only): the gather backend gives each token the bits grouped_plain
+    gives it, alone or among 36 tokens (a fused engine step), so the
+    overlapped engine serves the sequential one's streams."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from types import SimpleNamespace
+
+    from repro_torch.core.experts import routed_experts
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(34)
+    t, k, e, d, m = 36, 3, 5, 6144, 3072
+    x = torch.randn((t, d), generator=g, device=dev).to(dt)
+    bank = {"wi": (torch.randn((e, d, m), generator=g, device=dev) *
+                   d ** -0.5).to(dt),
+            "wd": (torch.randn((e, m, d), generator=g, device=dev) *
+                   m ** -0.5).to(dt)}
+    idx = torch.rand((t, e), generator=g, device=dev).topk(k, dim=1).indices
+    idx[3, 1] = e                                  # a sentinel assignment
+    gates = torch.rand((t, k), generator=g, device=dev)
+    gates[3, 1] = 0.0
+    cfg = SimpleNamespace(activation="gelu", cmoe=None, moe=None)
+
+    def run(rows, backend):
+        return routed_experts(x[rows], bank, gates[rows], idx[rows], cfg,
+                              backend=backend)[0]
+
+    every = slice(0, t)
+    got = run(every, "gather")
+    assert torch.equal(got, run(every, "grouped_plain"))
+    for i in (0, 3, t - 1):
+        assert torch.equal(run(slice(i, i + 1), "gather"), got[i:i + 1])
+        assert torch.equal(run(slice(i, i + 4), "grouped_plain"),
+                           got[i:i + 4][:min(4, t - i)])
+    torch.cuda.synchronize()

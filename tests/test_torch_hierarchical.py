@@ -158,7 +158,7 @@ def test_partition_pool_matches_serial_loop(conv):
         w = {n: torch.from_numpy(np.array(host["blocks"]["moe"][n][0, ei]))
              for n in ("wg", "wu", "wd")}
         profiles.append(th.profile_expert(w, x, cm, "swiglu"))
-    pooled = th.partition_experts(profiles, cm)
+    pooled = th.partition_profiles(profiles, cm)
     for (a, mu), got in zip(profiles, pooled):
         want = partition_neurons(a, mu, cm)
         for name in ("shared_idx", "routed_idx", "rep_idx"):
