@@ -164,7 +164,26 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      moe_gather on their inputs (phi3, gemma3); (d) the engine on the
      converted model with phase 4's engine flags; launch counts zeroed
      before each run and read after: granite launches no GLU-only FFN
-     kernel, the others all three, and every engine paged_attn_decode.
+     kernel, the others all three, and every engine paged_attn_decode;
+  9. whisper-small (the enc-dec family) at its published widths and depth,
+     through the model's entry points (the CLI has no audio path, as the
+     reference's has none): (a) float32 at 2 encoder and 2 decoder
+     layers, the card against the port on the CPU on one set of weights, a
+     prefill of 2 x 24 tokens over 1500 frames and 4 greedy steps (logits
+     within 1e-3 max|logit|, tokens equal); (b) bfloat16, 12 + 12 layers,
+     frames (4, 1500, 768) N(0, 1) and 4 x 32 prompts, 16 generated: the
+     peak after init, the encoder alone and the prefill (medians of 5
+     warm), decode tok/s, the encoder and a decode step by kernel
+     (torch.profiler); (c) the
+     S3A3E8 conversion of the decoder's FFNs on the CLI's 4 x 128
+     calibration tokens plus frames (profile and cluster seconds; its peak
+     held to its calibration forward's plus two layers' FFN and the taps;
+     enc_blocks bitwise unchanged; backends grouped_plain / gather), the
+     converted path as in (b), and the converted weights with every routed
+     expert active against (b)'s prefill logits (within
+     DS_HIER_ALL_ACTIVE_TOL); launch counts zeroed before each run and read
+     after: no kernel runs on whisper's path, as no Pallas kernel runs on
+     the reference's.
 Each phase prints its seconds (``[seconds]``).
 The ``[routes]`` lines of phases 3a, 3b, 4, 5 (5a, path A, 5b-5e), 6 and 8
 count which kernel each launch of the four FFN kernels and of
@@ -325,6 +344,15 @@ PAGED_STEP_DEPTH = 64
 # gemma3's second paged decode step, past its 1024-token sliding window, so
 # the window masks keys on the local layer the check reads
 WINDOW_STEP_DEPTH = 1100
+# whisper-small (phase 9), the enc-dec family at its published widths and
+# depth (12 encoder and 12 decoder layers, 1500 frames; 0.56 GB in
+# bfloat16); its float32 check against the CPU at 2 + 2 layers
+WHISPER = "whisper-small"
+WHISPER_F32_LAYERS = 2
+WHISPER_F32_BATCH, WHISPER_F32_PROMPT, WHISPER_F32_STEPS = 2, 24, 4
+WHISPER_CMOE = "S3A3E8"
+# timed runs of the encoder and of the prefill after a warm one (median)
+WHISPER_REPEATS = 5
 # mla_paged_decode at the engine's decode shape and at a long context
 # (r = kv_lora_rank, dr = qk_rope_head_dim, scale (dn + dr)^-0.5)
 MLA_MAIN = dict(rows=4, heads=128, r=512, dr=64, bs=16, depth=80)
@@ -2761,16 +2789,8 @@ def step_trace(model, params, prompts, host_ms: dict, what: str) -> dict:
     tok = prompts[:, -1:]
     calls = {"prefill": lambda: model.prefill(params, {"tokens": prompts}),
              "decode": lambda: model.decode_step(params, tok, cache, seq)}
-    busy_ms = {}
-    for phase, fn in calls.items():
-        per = kernel_ms(fn, [[]], calls=3)
-        busy = busy_ms[phase] = sum(per.values())
-        top = ", ".join(f"{name.strip()} {ms:.3f}" for name, ms in
-                        sorted(per.items(), key=lambda kv: -kv[1])[:6])
-        print(f"[trace] {what} {phase}: {busy:.2f} ms of device time "
-              f"a call against {host_ms[phase]:.2f} ms on the host's clock "
-              f"(idle share {max(0.0, 1 - busy / host_ms[phase]):.2f}); "
-              f"most: {top}")
+    busy_ms = {phase: trace_line(f"{what} {phase}", fn, host_ms[phase])
+               for phase, fn in calls.items()}
     del cache
     torch.cuda.synchronize()
     return busy_ms
@@ -3799,6 +3819,308 @@ def attention_pair() -> dict:
     return launches
 
 
+def whisper_batch(cfg, batch: int, prompt: int, seed: int, dev) -> dict:
+    """Tokens (batch, prompt) and num_frames frame embeddings N(0, 1) of
+    d_model, drawn with numpy from `seed` (the conv frontend is a stub)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, prompt))
+    frames = rng.standard_normal(
+        (batch, cfg.encoder.num_frames, cfg.d_model)).astype(np.float32)
+    return {"tokens": torch.as_tensor(tokens, dtype=torch.long, device=dev),
+            "frames": torch.as_tensor(frames, device=dev)}
+
+
+def no_launches(tag: str) -> dict:
+    """The launch counts since the last reset, which must all be 0: the
+    enc-dec path runs no kernel (GELU FFN, plain attention), as the
+    reference's runs no Pallas kernel."""
+    from repro_torch.kernels import ops
+    launches = dict(ops.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"{tag}: a kernel ran on whisper's path, "
+                             f"which has none: {launches}")
+    return launches
+
+
+def whisper_f32_agreement() -> dict:
+    """Phase 9a: whisper-small at full width, WHISPER_F32_LAYERS encoder and
+    decoder layers, float32: one set of weights on the card and through the
+    port on the CPU, a prefill of WHISPER_F32_PROMPT over num_frames frames
+    then WHISPER_F32_STEPS greedy steps; logits within 1e-3 of max|logit|
+    and equal tokens at every step. Returns the launch counts (all 0)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.config import override
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_map
+
+    base = get_config(WHISPER)
+    cfg = override(base, dtype="float32", num_layers=WHISPER_F32_LAYERS,
+                   encoder=dataclasses.replace(
+                       base.encoder, num_layers=WHISPER_F32_LAYERS))
+    dev = torch.device("cuda")
+    ops.reset_launches()
+    gpu = build_model(cfg, device=dev)
+    cpu = build_model(cfg, device="cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = gpu.init(gen)
+    p_cpu = tree_map(lambda a: a.cpu(), params)
+    b, s, steps = WHISPER_F32_BATCH, WHISPER_F32_PROMPT, WHISPER_F32_STEPS
+    batch = whisper_batch(cfg, b, s, 1, dev)
+    lg, cg = gpu.prefill(params, batch, max_len=s + steps)
+    lc, cc = cpu.prefill(p_cpu, {k: v.cpu() for k, v in batch.items()},
+                         max_len=s + steps)
+    worst = 0.0
+    for i in range(steps + 1):
+        scale = lc.abs().max().item()
+        err = (lg.cpu() - lc).abs().max().item()
+        worst = max(worst, err / scale)
+        tg, tc = lg.argmax(-1), lc.argmax(-1)
+        if not (err <= 1e-3 * scale and tg.cpu().tolist() == tc.tolist()):
+            raise AssertionError(f"whisper f32 step {i}: card against CPU "
+                                 f"max|err| {err:.3e} of max|logit| "
+                                 f"{scale:.3e}, tokens {tg.tolist()} / "
+                                 f"{tc.tolist()}")
+        if i == steps:
+            break
+        lg, cg = gpu.decode_step(params, tg[:, None], cg, s + i)
+        lc, cc = cpu.decode_step(p_cpu, tc[:, None], cc, s + i)
+    launches = no_launches("phase 9a whisper f32")
+    print(f"[phase 9a whisper f32] {WHISPER_F32_LAYERS} encoder and "
+          f"{WHISPER_F32_LAYERS} decoder layers at full width, card against "
+          f"the port on the CPU: prefill {b}x{s} over "
+          f"{cfg.encoder.num_frames} frames and {steps} greedy steps, "
+          f"max|err| / max|logit| {worst:.3e} (tol 1e-3), tokens equal, "
+          f"launches {launches}")
+    torch.cuda.synchronize()
+    return launches
+
+
+def trace_line(what: str, fn, host_ms: float) -> float:
+    """Print the device ms a call of `fn` by CUDA kernel (kernel_ms) against
+    its `host_ms` on the host's clock, the idle share, and the kernels that
+    take most of it. Returns the device ms a call."""
+    per = kernel_ms(fn, [[]], calls=3)
+    busy = sum(per.values())
+    top = ", ".join(f"{name.strip()} {ms:.3f}" for name, ms in
+                    sorted(per.items(), key=lambda kv: -kv[1])[:6])
+    print(f"[trace] {what}: {busy:.2f} ms of device time a call against "
+          f"{host_ms:.2f} ms on the host's clock (idle share "
+          f"{max(0.0, 1 - busy / host_ms):.2f}); most: {top}")
+    return busy
+
+
+def whisper_serve(model, params, batch: dict, tag: str) -> dict:
+    """The static path through the model's entry points (the CLI has no
+    audio path, as the reference's): a warm-up prefill, WHISPER_REPEATS
+    timed ones (median), then GEN - 1 timed greedy decode steps after a
+    warm one, and a trace of one decode step by kernel. Returns the prefill
+    logits, the tokens, prefill_ms and decode_tok_s."""
+    import statistics
+
+    import torch
+    seq = batch["tokens"].shape[1]
+
+    def prefill():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.prefill(params, batch, max_len=seq + GEN)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    prefill()
+    times = []
+    for _ in range(WHISPER_REPEATS):
+        (logits, cache), dt = prefill()
+        times.append(dt)
+    prefill_ms = 1e3 * statistics.median(times)
+    toks = [logits.argmax(-1)[:, None]]
+    model.decode_step(params, toks[0], cache, seq)     # warm, idempotent
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(GEN - 1):
+        lg, cache = model.decode_step(params, toks[-1], cache, seq + i)
+        toks.append(lg.argmax(-1)[:, None])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    tokens = torch.cat(toks, dim=1)
+    vocab = model.cfg.vocab_size
+    if tokens.shape != (BATCH, GEN) or tokens.min() < 0 or \
+            tokens.max() >= vocab or not torch.isfinite(logits).all():
+        raise AssertionError(f"bad {tag} output: tokens "
+                             f"{tuple(tokens.shape)}")
+    tok_s = BATCH * (GEN - 1) / decode_s
+    print(f"[e2e {tag}] prefill {prefill_ms:.2f} ms ({BATCH}x{seq} tokens "
+          f"over {batch['frames'].shape[1]} frames, median of "
+          f"{WHISPER_REPEATS} warm), decode {tok_s:.1f} tok/s ({BATCH} "
+          f"lanes, {GEN - 1} steps)")
+    trace_line(f"{tag} decode", lambda: model.decode_step(
+        params, toks[-1], cache, seq + GEN - 1), 1e3 * BATCH / tok_s)
+    del cache
+    return {"logits": logits.float().cpu(), "tokens": tokens.cpu(),
+            "prefill_ms": prefill_ms, "decode_tok_s": tok_s}
+
+
+def whisper_phase(records: dict) -> dict:
+    """Phase 9: whisper-small (the enc-dec family) at its published widths
+    and depth through the model's entry points, which is how the reference
+    runs it too (its CLI's batches carry no frames). (a) the float32 check
+    of whisper_f32_agreement; (b) bfloat16, 12 + 12 layers: the peak after
+    init, the encoder alone and the prefill (encoder included), each the
+    median of WHISPER_REPEATS warm runs, decode tok/s, and the encoder and
+    a decode step by kernel (whisper_serve); (c) the S3A3E8 conversion of the decoder's FFNs
+    on the CLI's 4 x 128 calibration tokens plus num_frames frames: profile
+    and cluster seconds, the peak (held to the calibration forward's own
+    peak plus one layer's FFN and the taps: the in-place write adds no
+    copy), enc_blocks bitwise unchanged, the backend per phase, the
+    converted static path, and the conversion's weights with every routed
+    expert active against the unconverted prefill logits. Launch counts are
+    zeroed before each run and read after: 0 on every kernel. Returns the
+    counts by run."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import convert_dense_model
+    from repro_torch.core.experts import microbatch_backend
+    from repro_torch.data import make_calibration_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import parse_sxayez
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_leaves, tree_map
+
+    cfg = get_config(WHISPER)
+    dev = torch.device("cuda")
+    print(f"[cut] {WHISPER}: none, all {cfg.encoder.num_layers} encoder and "
+          f"{cfg.num_layers} decoder layers (phase 9, bfloat16; "
+          f"{WHISPER_F32_LAYERS} + {WHISPER_F32_LAYERS} in float32); d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} {cfg.activation}, "
+          f"{cfg.encoder.num_frames} frames, vocab {cfg.vocab_size}")
+    free_device("phase 9 whisper")
+    launches = {"f32": whisper_f32_agreement()}
+    free_device("phase 9 whisper bf16")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    ops.reset_launches()
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = whisper_batch(cfg, BATCH, PROMPT, 0, dev)
+    enc_ms = []
+    for i in range(WHISPER_REPEATS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model._encode(params, batch["frames"])
+        torch.cuda.synchronize()
+        if i:
+            enc_ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"[e2e whisper bf16] {n_params / 1e6:.2f} M parameters, peak "
+          f"{init_gb:.3f} GB after init ({held_gb:.3f} GB of it held before "
+          f"init: earlier phases' and the libraries' allocations); encoder "
+          f"alone "
+          f"{statistics.median(enc_ms):.2f} ms ({BATCH}x"
+          f"{cfg.encoder.num_frames} frames, median of {WHISPER_REPEATS} "
+          f"warm)")
+    trace_line("whisper bf16 encoder", lambda: model._encode(
+        params, batch["frames"]), statistics.median(enc_ms))
+    ref = whisper_serve(model, params, batch, "whisper bf16")
+    launches["dense_static"] = no_launches("phase 9b whisper bf16")
+    serve_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[e2e whisper bf16] peak {serve_gb:.3f} GB after serving, "
+          f"launches {launches['dense_static']}")
+
+    # (c) the conversion, in place over the decoder's FFN storage
+    cm = parse_sxayez(WHISPER_CMOE)
+    calib = make_calibration_batch(cfg.vocab_size, 4, 128, seed=0)
+    calib = {"tokens": torch.as_tensor(calib["tokens"], dtype=torch.long,
+                                       device=dev),     # frames of seed 2
+             "frames": whisper_batch(cfg, 4, 1, 2, dev)["frames"]}
+    enc_before = tree_map(torch.clone, params["enc_blocks"])
+    ffn_bytes = sum(w[0].numel() * w.element_size()
+                    for w in params["blocks"]["ffn"].values())
+    torch.cuda.synchronize()
+    free_device("phase 9 whisper's conversion")
+    torch.cuda.reset_peak_memory_stats()
+    taps = model.ffn_inputs(params, calib)
+    taps_bytes = taps.numel() * taps.element_size()
+    del taps
+    torch.cuda.synchronize()
+    fwd_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    model, params, report = convert_dense_model(model, params, calib, cm)
+    torch.cuda.synchronize()
+    conv_gb = torch.cuda.max_memory_allocated() / 1e9
+    allowed = fwd_gb + 2 * (ffn_bytes + taps_bytes) / 1e9
+    if conv_gb > allowed:
+        raise AssertionError(f"whisper conversion peak {conv_gb:.3f} GB over "
+                             f"its calibration forward's {fwd_gb:.3f} GB plus "
+                             f"two layers' FFN and the taps ({allowed:.3f})")
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(params["enc_blocks"]), tree_leaves(enc_before)))
+    if not same or "cmoe" in params["enc_blocks"]:
+        raise AssertionError("the conversion changed whisper's encoder")
+    del enc_before
+    backends = {
+        "prefill": microbatch_backend(model.cfg, BATCH * PROMPT, "prefill",
+                                      use_kernel=True),
+        "decode": microbatch_backend(model.cfg, BATCH, "decode",
+                                     use_kernel=True)}
+    if backends != {"prefill": "grouped_plain", "decode": "gather"}:
+        raise AssertionError(f"whisper cmoe backends per phase: {backends}")
+    print(f"[e2e whisper cmoe] converted {report.num_layers} decoder layers "
+          f"({cm.tag()}) on {report.calib_tokens} calibration tokens over "
+          f"{cfg.encoder.num_frames} frames: profile "
+          f"{report.seconds_profile:.2f} s, cluster "
+          f"{report.seconds_cluster:.2f} s; peak {conv_gb:.3f} GB (init "
+          f"{init_gb:.3f}, the calibration forward alone {fwd_gb:.3f}); "
+          f"enc_blocks bitwise unchanged; backends {backends}")
+    res = whisper_serve(model, params, batch, "whisper cmoe")
+    launches["static"] = no_launches("phase 9c whisper cmoe")
+    ops.reset_launches()
+    agree = int((res["tokens"][:, 0] == ref["tokens"][:, 0]).sum())
+    print(f"[e2e whisper cmoe] first greedy token as unconverted "
+          f"{agree}/{BATCH}, launches {launches['static']}")
+
+    # every routed expert active: the dense FFN's neurons, regrouped
+    m_all = build_model(model.cfg.with_cmoe(dataclasses.replace(
+        model.cfg.cmoe, top_k=model.cfg.cmoe.num_routed)), device=dev)
+    logits = m_all.prefill(params, batch)[0].float().cpu()
+    err = (logits - ref["logits"]).abs().max().item()
+    scale = ref["logits"].abs().max().item()
+    if not (torch.isfinite(logits).all() and
+            err <= DS_HIER_ALL_ACTIVE_TOL * scale):
+        raise AssertionError(f"whisper all-active conversion: max|err| "
+                             f"{err:.3e} > {DS_HIER_ALL_ACTIVE_TOL} x "
+                             f"max|logit| {scale:.3e}")
+    print(f"[e2e whisper cmoe] all {model.cfg.cmoe.num_routed} routed experts "
+          f"active vs the unconverted model, prefill logits {BATCH}x{PROMPT}:"
+          f" max|err| / max|logit| {err / scale:.3e} (tol "
+          f"{DS_HIER_ALL_ACTIVE_TOL}), greedy tokens agree "
+          f"{int((logits.argmax(-1) == ref['logits'].argmax(-1)).sum())}/"
+          f"{BATCH}")
+    launches["all_active"] = no_launches("phase 9c whisper all-active")
+    del m_all, model, params, res, ref
+    free_device("the phases after 9")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3951,6 +4273,13 @@ def main(argv=None) -> int:
                          "paged_attn_decode"):
                 records[name][f"launches_{key}_{run}"] = counts[name]
         took(f"8 {key}")
+
+    # phase 9: whisper-small's encoder-decoder at full width and depth,
+    # unconverted and converted, through the model's entry points
+    for run, counts in whisper_phase(records).items():
+        for name, n in counts.items():
+            records[name][f"launches_whisper_{run}"] = n
+    took("9")
 
     print(smi)
     print(json.dumps({"kernels": list(records.values())}))

@@ -1,11 +1,11 @@
 """Architecture registry. Each module exposes config() and smoke_config().
 
-The port lists every arch of the JAX package and runs all but the
-enc-dec family: the dense GQA decoders (SwiGLU, gemma3's GEGLU with
-sliding windows, granite's GELU MQA), internvl2's VLM (dense blocks behind
-a patch prefix), deepseek-v2's MLA + pretrained MoE, llama4's interleaved
-dense / GQA-MoE stack, and the Mamba2 SSM and zamba2 hybrid families.
-whisper-small raises until its slice lands.
+The port lists and runs every arch of the JAX package: the dense GQA
+decoders (SwiGLU, gemma3's GEGLU with sliding windows, granite's GELU
+MQA), internvl2's VLM (dense blocks behind a patch prefix), deepseek-v2's
+MLA + pretrained MoE, llama4's interleaved dense / GQA-MoE stack, the
+Mamba2 SSM and zamba2 hybrid families, and whisper-small's
+encoder-decoder.
 """
 from __future__ import annotations
 
@@ -32,16 +32,16 @@ ARCHS = {
     "granite-34b": "granite_34b",
     # dense blocks behind a prefix of (stub) vision patch embeddings
     "internvl2-26b": "internvl2_26b",
+    # encoder-decoder: GELU blocks, cross-attention over (stub) frame
+    # embeddings
+    "whisper-small": "whisper_small",
 }
 
-# archs of the JAX package whose families the port does not run yet
-NOT_PORTED = ("whisper-small",)
+# archs of the JAX package whose families the port does not run: none
+NOT_PORTED = ()
 
 
 def _module(arch: str):
-    if arch in NOT_PORTED:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet; "
-                                  f"the port runs {sorted(ARCHS)}")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")

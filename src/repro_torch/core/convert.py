@@ -59,12 +59,18 @@ def convert_dense_model(model: Model, params: dict, calib_batch: dict,
     back over its own region. The peak is the model plus one layer's FFN
     and the calibration taps. ``params`` gives up its FFN weights: they
     are removed from its ``blocks["ffn"]``; clone the params first if the
-    dense model is still needed."""
+    dense model is still needed.
+
+    The audio family (whisper) converts its decoder: the taps are the
+    decoder layers' FFN inputs over a calibration batch that carries
+    ``frames``. The encoder's blocks (``enc_blocks``) are left as they are
+    and keep running their dense FFN under the converted config."""
     cfg = model.cfg
     check_convertible(cfg)
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(f"conversion of family {cfg.family!r} is "
-                                  f"not ported yet")
+    if cfg.family not in ("dense", "vlm", "audio"):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} has no dense "
+                         f"FFN stack; convert an MoE model with "
+                         f"core.hierarchical.convert_moe_model")
     t0 = time.perf_counter()
     taps = model.ffn_inputs(params, calib_batch)             # (L, B, S, d)
     l, b, s, d = taps.shape

@@ -26,6 +26,10 @@ The VLM arch (internvl2-26b) is served text-only, as in the reference.
 The SSM and hybrid archs (mamba2-370m, zamba2-1.2b) serve statically only,
 as in the reference: ``--cmoe`` (conversion does not apply to them) and
 ``--continuous`` (the engine needs a positional KV cache) are refused.
+whisper-small (the enc-dec family) is refused on every path: its batches
+need frame embeddings, which this CLI's token-only batches lack (the
+reference's CLI fails on them too), and the engine refuses the family; the
+model's entry points run and convert it.
 
     python -m repro_torch.launch.serve --cmoe S3A3E8
     python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 4
@@ -197,6 +201,16 @@ def run(argv=None) -> dict:
         check_servable(cfg, block_kind(cfg))
     if args.cmoe:
         check_convertible(cfg)
+    if cfg.family == "audio":
+        # the reference's CLI fails here with KeyError: 'frames'
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder, whose batches need 'frames' "
+            f"(precomputed frame embeddings) beside the tokens; this CLI "
+            f"builds token-only batches (the static prompts and the --cmoe "
+            f"calibration batch), as the reference's does. Drive it through "
+            f"the model's entry points (Model.forward, prefill, decode_step; "
+            f"core.convert.convert_dense_model) with a batch that carries "
+            f"frames")
     if args.continuous and args.smoke and not args.cmoe:
         # exercise the per-micro-batch backend policy: without routed
         # experts there is nothing for the phase split to select

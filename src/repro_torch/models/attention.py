@@ -286,6 +286,7 @@ def gqa_project_qkv(x: torch.Tensor, p: dict, cfg):
 def gqa_attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
                   causal: bool = True, window: int = 0,
                   kv_cache: Optional[tuple] = None, cache_pos=None,
+                  cross_kv: Optional[tuple] = None,
                   use_rope: bool = True,
                   block_table: Optional[torch.Tensor] = None,
                   row_slots: Optional[torch.Tensor] = None,
@@ -295,6 +296,11 @@ def gqa_attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     K/V are written into the cache IN PLACE (the JAX reference returns an
     updated copy; the port updates the caller's tensors to save the copy):
 
+    - ``cross_kv`` (k, v) of (B, F, KH, hd): whisper's cross-attention
+      over the encoder's projected frames. Only q is projected, with no
+      RoPE; every frame is visible (non-causal chunked attention for S > 1,
+      decode attention at pos F - 1 for S == 1); no cache is written and
+      new_kv is None;
     - no cache: chunked attention over the block's own keys;
     - ``block_table`` (B, nblk): the cache leaves are a PAGED pool
       (nblocks, bs, KH, hd); writes go through the table, reads assemble
@@ -314,6 +320,14 @@ def gqa_attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     arithmetic on every path.
     """
     b, s, _ = x.shape
+    if cross_kv is not None:
+        q = matmul(x, p["wq"].reshape(cfg.d_model, -1)).reshape(
+            b, s, cfg.num_heads, cfg.resolved_head_dim)
+        k, v = cross_kv
+        out = chunked_attention(q, k, v, causal=False) if s > 1 else \
+            decode_attention(q, k, v, pos=k.shape[1] - 1)
+        out = matmul(out.reshape(b, s, -1), p["wo"].reshape(-1, cfg.d_model))
+        return out, None
     q, k, v = gqa_project_qkv(x, p, cfg)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)

@@ -1,8 +1,8 @@
 """Decoder blocks: the dense block (GQA attention + the dense FFN or the
 converted CMoE FFN), llama4's MoE block (GQA + the pretrained MoE),
-deepseek-v2's block (MLA + the pretrained MoE) and the Mamba2 block. Port
-of the dense, moe, mla_moe and mamba families of
-``repro/models/blocks.py``.
+deepseek-v2's block (MLA + the pretrained MoE), the Mamba2 block and
+whisper's decoder block (self-attention, cross-attention over the encoder,
+the FFN). Port of ``repro/models/blocks.py``, every family.
 
 Parameters keep the JAX layout (nested dicts, the same keys), so weights
 cross between the packages unchanged (see ``repro_torch.bridge``).
@@ -14,7 +14,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.models.attention import gqa_attention, mla_attention
-from repro_torch.models.layers import ffn, lecun, rms_norm
+from repro_torch.models.layers import ffn, lecun, matmul, rms_norm
 from repro_torch.models.ssm import init_mamba2_block, mamba2_block
 
 
@@ -43,6 +43,8 @@ class BlockCtx(NamedTuple):
     #   row_slots[r] at cache_pos[r]
     row_k: Optional[torch.Tensor] = None         # (B,) int: per-row
     #   effective routed top-k (activation tiers); None = K_max everywhere
+    cross_kv: Any = None             # whisper's decoder: this layer's
+    #   projected encoder (k, v), or the raw encoder output (B, F, d)
 
 
 def init_attn(cfg, dtype, device, generator) -> dict:
@@ -271,17 +273,68 @@ def mamba_block(x: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
     return x + h, new_cache, {}
 
 
+# ------------------------------------------------------------ whisper decoder
+
+def init_encdec_block(cfg, dtype, device, generator) -> dict:
+    p = {"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+         "attn": init_attn(cfg, dtype, device, generator),
+         "norm_x": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+         "xattn": init_attn(cfg, dtype, device, generator),
+         "norm2": torch.zeros((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.cmoe is not None:
+        p["cmoe"] = init_cmoe_ffn(cfg, dtype, device, generator)
+    else:
+        p["ffn"] = init_ffn(cfg, dtype, device, generator)
+    return p
+
+
+def encdec_block(x: torch.Tensor, p: dict, cfg, ctx: BlockCtx):
+    """Causal self-attention without RoPE (the reference hard-codes
+    use_rope=False: no position signal runs in whisper's decoder), then
+    cross-attention over ctx.cross_kv, then the dense or CMoE FFN."""
+    h, new_kv = gqa_attention(
+        rms_norm(x, p["norm1"], cfg.norm_eps), p["attn"], cfg,
+        positions=ctx.positions, causal=True, kv_cache=ctx.cache,
+        cache_pos=ctx.cache_pos, use_rope=False)
+    x = x + h
+    cross = ctx.cross_kv
+    if not isinstance(cross, tuple):        # raw encoder output: project
+        cross = cross_kv_project(cross, p["xattn"], cfg)
+    h, _ = gqa_attention(rms_norm(x, p["norm_x"], cfg.norm_eps), p["xattn"],
+                         cfg, positions=ctx.positions, cross_kv=cross)
+    x = x + h
+    ffn_in = rms_norm(x, p["norm2"], cfg.norm_eps)
+    y, aux = _apply_ffn(ffn_in, p, cfg, ctx)
+    if ctx.capture:
+        aux = {**aux, "ffn_in": ffn_in}
+    return x + y, new_kv, aux
+
+
+def cross_kv_project(enc_out: torch.Tensor, p_xattn: dict, cfg) -> tuple:
+    """The encoder's K and V for one decoder layer's cross-attention: enc_out
+    (B, F, d) -> k, v of (B, F, KH, hd)."""
+    b, f, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = matmul(enc_out, p_xattn["wk"].reshape(cfg.d_model, -1)).reshape(
+        b, f, cfg.num_kv_heads, hd)
+    v = matmul(enc_out, p_xattn["wv"].reshape(cfg.d_model, -1)).reshape(
+        b, f, cfg.num_kv_heads, hd)
+    return k, v
+
+
 BLOCKS = {
     "dense": (init_dense_block, dense_block),
     "moe": (init_moe_block, moe_block),
     "mla_moe": (init_mla_moe_block, mla_moe_block),
     "mamba": (init_mamba_block, mamba_block),
+    "encdec": (init_encdec_block, encdec_block),
 }
 
 
 def block_kind(cfg) -> str:
-    """The reference's block families; the port runs "dense", "moe",
-    "mla_moe" and "mamba"."""
+    """The reference's block families: the hybrid's layers are Mamba2
+    blocks (its shared attention block runs in the stack), and the audio
+    family's are its decoder blocks (the encoder runs dense blocks)."""
     if cfg.family == "moe":
         return "mla_moe" if cfg.mla is not None else "moe"
     if cfg.family in ("ssm", "hybrid"):

@@ -19,6 +19,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     return out.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with float32 statistics (the biased variance), output in
+    x's dtype. No model path calls it: whisper's encoder ends in
+    `rms_norm`, as in the reference."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
 # Rows per product call on the card (see row_matmul)
 ROW_TILE = 64
 # Row counts at which a weight's single-call product is probed (row_matmul)

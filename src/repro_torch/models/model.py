@@ -2,10 +2,10 @@
 behind a prefix of patch embeddings, internvl2), llama4 (dense and GQA +
 MoE layers interleaved, the MoE pretrained or hierarchically converted),
 deepseek-v2 (MLA + the pretrained MoE, or its hierarchical CMoE
-conversion), Mamba2 (SSM) and the zamba2 hybrid.
+conversion), Mamba2 (SSM), the zamba2 hybrid and whisper's encoder-decoder
+(the audio family).
 
-Port of the dense, vlm, moe, mla_moe, ssm and hybrid paths of
-``repro/models/model.py``. Parameters are nested dicts of tensors in the
+Port of every family's path of ``repro/models/model.py``. Parameters are nested dicts of tensors in the
 JAX layout: block leaves are stacked over layers as (L, ...) (llama4: a
 ``blocks_dense`` and a ``blocks_moe`` stack of L/2 layers each), and the
 reference's ``lax.scan`` over that stack becomes a Python loop over
@@ -17,8 +17,12 @@ cw-1, di+2N) / (L, B, nh, hp, N), and for the hybrid that pair followed by
 the shared attention block's k and v of (n_apps, B, T, KH, hd). llama4's
 cache is the flat (k, v) pair of L layers in model order, where the
 reference nests ((k_dense, v_dense), (k_moe, v_moe)) of L/2 each: period
-i's dense layer is layer 2i, its MoE layer 2i + 1. ``step`` updates every
-cache in place. The enc-dec family is not ported yet and raises.
+i's dense layer is layer 2i, its MoE layer 2i + 1. The audio family's cache
+is the reference's {"self": (k, v) of (L, B, T, KH, hd), "cross": (k, v)
+of (L, B, F, KH, hd)}, the decoder's own keys and each layer's projection
+of the encoder's F frames. ``step`` updates every cache in place; the
+audio family is served by ``prefill`` and ``decode_step`` only, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -132,12 +136,13 @@ class Model:
         self.interleaved = self.kind == "moe" and moe_every > 1
         mamba = cfg.cmoe is None and (cfg.family == "ssm" or (
             cfg.family == "hybrid" and cfg.hybrid_attn_every > 0))
-        if not (dense or routed or self.interleaved or mamba):
+        audio = cfg.family == "audio" and cfg.encoder is not None
+        if not (dense or routed or self.interleaved or mamba or audio):
             raise NotImplementedError(
-                f"family {cfg.family!r} (blocks {self.kind!r}) is not ported "
-                f"yet; the port runs the dense GQA decoder and VLM families, "
-                f"llama4's GQA + MoE, deepseek-v2's MLA + MoE, Mamba2 and the "
-                f"zamba2 hybrid")
+                f"family {cfg.family!r} (blocks {self.kind!r}) is not ported; "
+                f"the port runs the dense GQA decoder and VLM families, "
+                f"llama4's GQA + MoE, deepseek-v2's MLA + MoE, Mamba2, the "
+                f"zamba2 hybrid and whisper's encoder-decoder")
         if self.interleaved and (moe_every != 2 or cfg.num_layers % 2):
             raise ValueError(
                 f"{cfg.name}: an interleaved MoE stack runs periods of one "
@@ -187,6 +192,16 @@ class Model:
         if cfg.family == "hybrid":
             params["shared_attn"] = B.init_dense_block(cfg, dt, dev,
                                                        generator)
+        if cfg.family == "audio":
+            enc = cfg.encoder
+            params["enc_blocks"] = init_stacked(
+                lambda: B.init_dense_block(cfg, dt, dev, generator),
+                enc.num_layers)
+            params["enc_pos"] = (torch.randn(
+                (enc.num_frames, cfg.d_model), generator=generator,
+                dtype=torch.float32, device=dev) * 0.02).to(dt)
+            params["enc_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
+                                             device=dev)
         if cfg.family == "vlm" and cfg.vision and cfg.vision.d_patch:
             params["vision_proj"] = (torch.randn(
                 (cfg.vision.d_patch, cfg.d_model), generator=generator,
@@ -209,13 +224,49 @@ class Model:
             x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
         return x
 
+    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """whisper's encoder over precomputed frame embeddings (B, F, d)
+        (the conv frontend is a stub): the learned positions added, the
+        dense blocks run without a causal mask, RoPE or a window, then
+        RMSNorm with ``enc_norm`` (RMSNorm, not LayerNorm, as in the
+        reference)."""
+        cfg = self.cfg
+        f = frames.shape[1]
+        if f > cfg.encoder.num_frames:
+            raise ValueError(f"{f} frames, past the encoder's "
+                             f"{cfg.encoder.num_frames} positions")
+        x = frames.to(torch_dtype(cfg)) + params["enc_pos"][None, :f]
+        ctx = BlockCtx(positions=torch.arange(f, device=x.device),
+                       cache=None, cache_pos=None, window=0, causal=False,
+                       use_rope=False, use_kernel=self.use_kernel)
+        blocks = params["enc_blocks"]
+        for li in range(cfg.encoder.num_layers):
+            x, _, _ = B.dense_block(x, tree_map(lambda a: a[li], blocks),
+                                    cfg, ctx)
+        return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _enc_out(self, params, batch):
+        """The encoder's output over ``batch["frames"]`` for the audio
+        family, else None."""
+        if self.cfg.family != "audio":
+            return None
+        if "frames" not in batch:
+            raise ValueError(
+                f"{self.cfg.name} is an encoder-decoder: its batch needs "
+                f"'frames', precomputed frame embeddings (B, F, "
+                f"{self.cfg.d_model}), beside 'tokens'")
+        return self._encode(params, batch["frames"])
+
     def _stack(self, params, x: torch.Tensor, *, caches=None,
                cache_pos=None, capture: bool = False,
                phase: str = "prefill", backend: Optional[str] = None,
                token_valid=None, block_tables=None, row_slots=None,
-               row_k=None):
+               row_k=None, cross=None):
         """Run the layer stack. ``cache_pos`` is an int shared by the batch
-        or a per-slot (B,) tensor. Returns (x, caches, aux) with
+        or a per-slot (B,) tensor. ``cross`` feeds the audio family's
+        cross-attention: the encoder's output (B, F, d), which each layer
+        projects, or the projected (k, v) of (L, B, F, KH, hd), one slice a
+        layer. Returns (x, caches, aux) with
         aux["ffn_in"] stacked over layers when ``capture`` (for an
         interleaved stack a dict {"moe", "dense"}, each stacked over its
         own layers) and aux["dropped"] summed over layers."""
@@ -245,8 +296,10 @@ class Model:
             p = tree_map(lambda a: a[i], blocks)
             cache_l = None if caches is None else \
                 (caches[0][li], caches[1][li])
-            x, _, aux = block_fn(x, p, cfg, base._replace(cache=cache_l,
-                                                          window=window))
+            cross_l = cross if not isinstance(cross, tuple) else \
+                (cross[0][li], cross[1][li])
+            x, _, aux = block_fn(x, p, cfg, base._replace(
+                cache=cache_l, window=window, cross_kv=cross_l))
             if capture:
                 taps.setdefault(tap, []).append(aux["ffn_in"])
             if "dropped" in aux:
@@ -308,16 +361,17 @@ class Model:
             else params["lm_head"]
 
     def forward(self, params, batch) -> torch.Tensor:
-        """Full-sequence logits (small models/tests only)."""
+        """Full-sequence logits (small models/tests only). The audio
+        family's batch carries ``frames`` beside the tokens."""
         x = self._embed(params, batch)
-        x, _, _ = self._stack(params, x)
+        x, _, _ = self._stack(params, x, cross=self._enc_out(params, batch))
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return unembed(x, self._head(params), self.cfg.tie_embeddings)
 
     def hidden_states(self, params, batch) -> torch.Tensor:
         """Stack output before the final norm (as the JAX reference)."""
         x = self._embed(params, batch)
-        x, _, _ = self._stack(params, x)
+        x, _, _ = self._stack(params, x, cross=self._enc_out(params, batch))
         return x
 
     def ffn_inputs(self, params, batch):
@@ -326,7 +380,8 @@ class Model:
         interleaved stack a dict {"moe": ..., "dense": ...} of (L/2, B, S,
         d) each."""
         x = self._embed(params, batch)
-        _, _, aux = self._stack(params, x, capture=True)
+        _, _, aux = self._stack(params, x, capture=True,
+                                cross=self._enc_out(params, batch))
         return aux["ffn_in"]
 
     # ------------------------------------------------------------ caches
@@ -348,8 +403,14 @@ class Model:
         for Mamba2 the conv state (L, B, cw-1, di+2N) in the model's dtype
         and the SSM state (L, B, nh, hp, N) in float32, and for the hybrid
         that pair with the shared attention block's k and v of (n_apps,
-        batch_size, max_len, KH, hd)."""
+        batch_size, max_len, KH, hd). The audio family's is {"self": the
+        decoder's (k, v), "cross": (k, v) of (L, batch_size, num_frames,
+        KH, hd)}."""
         cfg = self.cfg
+        if cfg.family == "audio":
+            return {"self": self._cache_leaves((batch_size, max_len)),
+                    "cross": self._cache_leaves(
+                        (batch_size, cfg.encoder.num_frames))}
         if self.kind != "mamba":
             return self._cache_leaves((batch_size, max_len))
         di, n, nh = d_inner(cfg), cfg.ssm.state_size, num_ssm_heads(cfg)
@@ -375,7 +436,7 @@ class Model:
         physical block 0 is the trash block that absorbs dummy and spill
         writes (see ``repro_torch.serving.cache.PagedKVCache``). Only the
         slot-addressable KV families the engine serves have one."""
-        if self.kind == "mamba":
+        if self.kind in ("mamba", "encdec"):
             raise NotImplementedError(
                 f"paged cache serves the slot-addressable KV families; "
                 f"kind={self.kind!r} is not one")
@@ -414,6 +475,11 @@ class Model:
         the routed pairs any dispatch failed to keep, summed over layers
         (zero on every engine backend)."""
         cfg = self.cfg
+        if cfg.family == "audio":
+            raise NotImplementedError(
+                "step() serves the KV-cache families; the audio family's "
+                "prefill and decode_step keep their encoder-decoder "
+                "cross-attention paths")
         s = tokens.shape[1]
         if phase is None:
             phase = "decode" if s == 1 else "prefill"
@@ -434,8 +500,7 @@ class Model:
             idx = (lengths.long() - 1)[:, None, None].expand(
                 x.shape[0], 1, x.shape[2])
             xl = torch.gather(x, 1, idx)
-        xl = rms_norm(xl, params["final_norm"], cfg.norm_eps)
-        logits = unembed(xl, self._head(params), cfg.tie_embeddings)[:, 0]
+        logits = self._logits(params, xl)
         if return_stats:
             dropped = aux.get("dropped", torch.zeros((), dtype=torch.int32,
                                                      device=x.device))
@@ -448,6 +513,8 @@ class Model:
         (B, V), cache)."""
         tokens = batch["tokens"]
         bsz, seq = tokens.shape
+        if self.cfg.family == "audio":
+            return self._prefill_audio(params, batch, max_len or seq)
         cache = self.init_cache(bsz, max_len or seq)
         extras = {k: v for k, v in batch.items() if k not in
                   ("tokens", "token")}
@@ -456,8 +523,46 @@ class Model:
 
     def decode_step(self, params, token: torch.Tensor, cache, pos: int):
         """One decode step. token: (B, 1); pos: the index the new token is
-        written at. Returns (logits (B, V), cache)."""
-        return self.step(params, token, cache, pos, phase="decode")
+        written at. Returns (logits (B, V), cache). The audio family
+        attends its stored cross cache (the reference's
+        _stack_audio_decode)."""
+        if self.cfg.family != "audio":
+            return self.step(params, token, cache, pos, phase="decode")
+        x = self._embed(params, {"tokens": token})
+        x, _, _ = self._stack(params, x, caches=cache["self"],
+                              cache_pos=pos, phase="decode",
+                              cross=cache["cross"])
+        return self._logits(params, x[:, -1:]), cache
+
+    def _prefill_audio(self, params, batch, max_len: int):
+        """The audio family's prefill: encode the frames, fill the cross
+        cache with each layer's projection of the encoder output (F frames,
+        as many as the batch holds), and run the decoder over the tokens,
+        filling "self" from position 0. The reference projects twice, once
+        for the cache and again inside each block from the raw encoder
+        output; the port projects once and hands each block its slice of
+        the cache, the same product on the same operands."""
+        cfg = self.cfg
+        enc_out = self._enc_out(params, batch)
+        bsz, f = enc_out.shape[0], enc_out.shape[1]
+        cross = self._cache_leaves((bsz, f))
+        xattn = params["blocks"]["xattn"]
+        for li in range(cfg.num_layers):
+            k, v = B.cross_kv_project(
+                enc_out, tree_map(lambda a: a[li], xattn), cfg)
+            cross[0][li], cross[1][li] = k, v
+        del enc_out
+        cache = {"self": self._cache_leaves((bsz, max_len)), "cross": cross}
+        x = self._embed(params, batch)
+        x, _, _ = self._stack(params, x, caches=cache["self"], cache_pos=0,
+                              cross=cross)
+        return self._logits(params, x[:, -1:]), cache
+
+    def _logits(self, params, xl: torch.Tensor) -> torch.Tensor:
+        """Logits (B, V) of the stack output at one position a row, xl
+        (B, 1, d): the final norm, then the head."""
+        xl = rms_norm(xl, params["final_norm"], self.cfg.norm_eps)
+        return unembed(xl, self._head(params), self.cfg.tie_embeddings)[:, 0]
 
 
 def build_model(cfg: ModelConfig, use_kernel: Optional[bool] = None,

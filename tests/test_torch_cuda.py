@@ -1395,3 +1395,41 @@ def test_cuda_non_glu_gather_rows_are_the_grouped_rows(dtype):
         assert torch.equal(run(slice(i, i + 4), "grouped_plain"),
                            got[i:i + 4][:min(4, t - i)])
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [64, 40], ids=["full", "short"])
+def test_cuda_whisper_smoke_matches_cpu(frames):
+    """whisper's smoke model (the enc-dec family: no kernel on its path)
+    in float32 on the card against the port on the CPU, one set of weights:
+    a prefill of 2 x 24 tokens over `frames` frame embeddings, then 3
+    greedy decode steps against the {"self", "cross"} cache; logits within
+    1e-4 of max|logit| and the same tokens at every step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.config import override
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_map
+    cfg = override(get_smoke_config("whisper-small"), dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    gpu = build_model(cfg, device="cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24), generator=g),
+             "frames": torch.randn((2, frames, cfg.d_model), generator=g)}
+    pg = tree_map(lambda a: a.cuda(), params)
+    lc, cc = cpu.prefill(params, batch, max_len=27)
+    lg, cg = gpu.prefill(pg, {k: v.cuda() for k, v in batch.items()},
+                         max_len=27)
+    assert tuple(cg["cross"][0].shape) == (2, 2, frames, 4, 16)
+    for i in range(4):
+        tol = 1e-4 * lc.abs().max().item()
+        assert (lg.cpu() - lc).abs().max().item() <= tol
+        tc, tg = lc.argmax(-1), lg.argmax(-1)
+        assert tg.cpu().tolist() == tc.tolist()
+        if i == 3:
+            break
+        lc, cc = cpu.decode_step(params, tc[:, None], cc, 24 + i)
+        lg, cg = gpu.decode_step(pg, tg[:, None], cg, 24 + i)
+    torch.cuda.synchronize()

@@ -28,6 +28,7 @@ import torch
 
 from repro.config import CMoEConfig as JCMoE, VisionConfig as JVision
 from repro.config import override as joverride
+from repro.configs import ARCHS as J_ARCHS
 from repro.configs import get_config as j_config
 from repro.configs import get_smoke_config as j_smoke
 from repro.core import convert as jconv
@@ -132,11 +133,14 @@ def _greedy_both(mj, pj, mt, pt, batch_np, steps, prefill_j, decode_j):
 # ------------------------------------------------------------ the registry
 
 def test_registry_runs_every_decoder_only_arch():
+    """Every arch of the JAX registry is in the port's, this file's four
+    and whisper-small too: nothing is left unported."""
     for arch in ARCHS:
         assert arch in tconfigs.ARCHS
-    assert tconfigs.NOT_PORTED == ("whisper-small",)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("whisper-small")
+    assert tconfigs.NOT_PORTED == ()
+    for arch in J_ARCHS:
+        assert arch in tconfigs.ARCHS
+        assert get_config(arch).name == j_config(arch).name
 
 
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
@@ -256,12 +260,13 @@ def test_converted_model_matches_jax(pair, conv):
                  jax.jit(mj2.decode_step))
 
 
-def _serial_copying_convert(model, params, tokens, cm):
+def _serial_copying_convert(model, params, batch, cm):
     """The conversion as a serial loop that copies: each layer sliced out,
-    profiled, partitioned and converted into a new tree, then stacked.
-    Returns (cmoe leaves stacked over layers, partitions)."""
+    profiled, partitioned and converted into a new tree, then stacked, the
+    taps taken over the calibration `batch` (tokens, and whisper's
+    frames). Returns (cmoe leaves stacked over layers, partitions)."""
     cfg = model.cfg
-    taps = model.ffn_inputs(params, {"tokens": tokens})
+    taps = model.ffn_inputs(params, batch)
     lyr, b, s, d = taps.shape
     x_all = taps.reshape(lyr, b * s, d)
     layers, parts = [], []
@@ -281,8 +286,8 @@ def test_in_place_conversion_is_the_serial_copying_one(pair, conv):
     and the converted banks live in their storage."""
     mt2, pt2, rt = conv["t"]
     cm = CMoEConfig(**CM)
-    want, parts = _serial_copying_convert(pair["mt"], pair["pt"],
-                                          torch.as_tensor(_calib()), cm)
+    want, parts = _serial_copying_convert(
+        pair["mt"], pair["pt"], {"tokens": torch.as_tensor(_calib())}, cm)
     got = pt2["blocks"]["cmoe"]
     assert sorted(p for p, _ in _leaves(got)) == \
         sorted(p for p, _ in _leaves(want))

@@ -437,13 +437,15 @@ def test_cli_converts_deepseek_hierarchically(argv):
                                         top_k=2)
 
 
-@pytest.mark.parametrize("argv", [[], ["--continuous"],
-                                  ["--cmoe", "S2A2E8"]],
-                         ids=["static", "continuous", "cmoe"])
-def test_unported_archs_still_raise(argv):
-    """whisper-small (enc-dec) is the one arch left: static, the engine
-    and conversion all refuse it."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+@pytest.mark.parametrize("argv,match", [
+    ([], "'frames'"), (["--continuous"], "not slot-addressable"),
+    (["--cmoe", "S2A2E8"], "'frames'")], ids=["static", "continuous", "cmoe"])
+def test_unported_archs_still_raise(argv, match):
+    """whisper-small (enc-dec) runs through the model's entry points only,
+    as in the reference: the CLI's static path and its conversion refuse
+    it (their token-only batches have no frames; the reference's CLI fails
+    on them with KeyError: 'frames'), and the engine refuses the family."""
+    with pytest.raises(NotImplementedError, match=match):
         tserve.run(["--arch", "whisper-small", "--smoke", "--device",
                     "cpu"] + argv)
 
