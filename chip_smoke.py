@@ -183,7 +183,30 @@ Phases (any failure raises and exits nonzero; no phase catches its own):
      expert active against (b)'s prefill logits (within
      DS_HIER_ALL_ACTIVE_TOL); launch counts zeroed before each run and read
      after: no kernel runs on whisper's path, as no Pallas kernel runs on
-     the reference's.
+     the reference's;
+ 10. training (the reference's training path runs no Pallas kernel, so
+     the launch counts, zeroed at the start, must all be 0 at the end):
+     (a) qwen1.5-0.5b whole in bfloat16 with its kernels off, batches of
+     8 x 256 from ShardedLoader, layer remat, make_train_step (AdamW, f32
+     moments), in deterministic mode: one Model.loss gradient with every
+     parameter leaf reached, then 6 straight steps; 3 steps, an async
+     checkpoint of params, moments and loader position, a restore into a
+     new manager and loader, and 3 more steps, bitwise the straight run's
+     params and both moments; loss, grad norm, the median warm step and
+     tokens/s, the peak after init and during training, the step's time
+     with the deterministic mode off, and one step's device time by
+     kernel (torch.profiler); (b) the CLIs at full width:
+     train.main for 2 steps, then --steps 4 --resume auto (restores step
+     2 and the loader, runs steps 2-3 with finite losses), and
+     convert.main --cmoe S3A3E8 restored leaf for leaf bitwise the
+     in-memory conversion of the same seed; (c) 3 train steps on that
+     converted model at 4 x 128 (cmoe.u's gradient non-zero in all 24
+     layers, moe_load (24, N_r), apply_balance_update moving each bias
+     by 0 or +-gamma) and LoRA at rank 8, alpha 32 (B = 0 merges bitwise to the
+     base loss; one AdamW step on the adapters alone lowers the loss on
+     the same batch); (d) float32 at 2 layers, TF32 off, the loss and
+     every gradient leaf on the card against the port on the CPU (|dloss|
+     <= 1e-5 relative, max|dg| <= 1e-4 max|g| a leaf).
 Each phase prints its seconds (``[seconds]``).
 The ``[routes]`` lines of phases 3a, 3b, 4, 5 (5a, path A, 5b-5e), 6 and 8
 count which kernel each launch of the four FFN kernels and of
@@ -244,6 +267,11 @@ import sys
 import time
 from pathlib import Path
 from typing import Optional
+
+# cuBLAS is deterministic only with a fixed workspace, which has to be set
+# before torch starts CUDA (phase 10's bitwise resume runs in
+# deterministic mode)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 
@@ -353,6 +381,21 @@ WHISPER_F32_BATCH, WHISPER_F32_PROMPT, WHISPER_F32_STEPS = 2, 24, 4
 WHISPER_CMOE = "S3A3E8"
 # timed runs of the encoder and of the prefill after a warm one (median)
 WHISPER_REPEATS = 5
+# phase 10: training qwen1.5-0.5b (ARCH) whole in bfloat16; TRAIN_STRAIGHT
+# steps straight, against half of them, a checkpoint and the other half
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_STRAIGHT = 6
+TRAIN_SCHEDULE = dict(lr=3e-4, warmup=2, total=TRAIN_STRAIGHT)
+TRAIN_CLI_ARGS = ["--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                  "--log-every", "1", "--seed", "0"]
+# 10c: the converted model's routed experts run grouped_plain's slab
+# copies, ~13 s a step at 8 x 256 on a slow host; its checks need no width
+TRAIN_CONVERTED_STEPS, TRAIN_CONVERTED_BATCH = 3, (4, 128)
+BALANCE_GAMMA = 1e-3
+LORA_RANK, LORA_ALPHA, LORA_LR = 8, 32.0, 1e-3
+# 10d: float32 at 2 layers, 2 x 64 tokens, card against the CPU
+TRAIN_F32_LAYERS, TRAIN_F32_TOKENS = 2, (2, 64)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
 # mla_paged_decode at the engine's decode shape and at a long context
 # (r = kv_lora_rank, dr = qk_rope_head_dim, scale (dn + dr)^-0.5)
 MLA_MAIN = dict(rows=4, heads=128, r=512, dr=64, bs=16, depth=80)
@@ -4121,6 +4164,489 @@ def whisper_phase(records: dict) -> dict:
     return launches
 
 
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_gb(dev) -> float:
+    import torch
+    return torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else float("nan")
+
+
+def _reset_peak(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _paths(tree, prefix=""):
+    """(path, leaf) pairs of a nested dict, None leaves included."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def train_steps(step_fn, params, opt, loader, n: int, dev,
+                gamma: float = 0.0):
+    """n steps of step_fn on the loader's batches, the balance update after
+    each where the model reports moe_load. Returns (params, opt, rows),
+    rows [(loss, grad_norm, ms, bias moves or None)] with ms host-timed
+    around the step (the loss's read syncs)."""
+    import torch
+    from repro_torch.optim import apply_balance_update
+    rows = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        batch = {"tokens": torch.as_tensor(next(loader)["tokens"],
+                                           dtype=torch.long, device=dev)}
+        params, opt, met = step_fn(params, opt, batch)
+        moved = None
+        if gamma > 0 and "moe_load" in met:
+            old = params["blocks"]["cmoe"]["bias"]
+            params = apply_balance_update(params, met["moe_load"],
+                                          gamma=gamma)
+            moved = (params["blocks"]["cmoe"]["bias"] - old, met["moe_load"])
+        loss = float(met["loss"])
+        rows.append((loss, float(met["grad_norm"]),
+                     (time.perf_counter() - t0) * 1e3, moved))
+    return params, opt, rows
+
+
+def train_resume(cfg, dev) -> None:
+    """Phase 10a: one Model.loss gradient (every leaf reached), then
+    TRAIN_STRAIGHT steps straight and the same steps as a half, an async
+    checkpoint round trip (new manager, new loader) and the other half, in
+    deterministic mode: params and both moments bitwise equal. Then steps
+    with the deterministic mode off, for its cost, and one traced."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import ShardedLoader
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_leaves, tree_map
+    from repro_torch.optim import adamw_init, global_norm
+
+    _reset_peak(dev)
+    model = build_model(cfg, use_kernel=False, device=dev)
+
+    def init():
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        return model.init(g)
+
+    def loader():
+        return ShardedLoader(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+
+    params = init()
+    _sync(dev)
+    peak_init = _peak_gb(dev)
+    first = {"tokens": torch.as_tensor(loader()._batch_at(0),
+                                       dtype=torch.long, device=dev)}
+    (loss, _), grads = value_and_grad(lambda p: model.loss(p, first),
+                                      params, fill=False)
+    missing = [path for path, g in _paths(grads) if g is None]
+    gnorm = float(global_norm(grads))
+    n_leaves = len(tree_leaves(grads))
+    del grads
+    if missing or not math.isfinite(gnorm) or gnorm <= 0 or \
+            not math.isfinite(float(loss)):
+        raise AssertionError(f"phase 10a: loss {float(loss)}, grad norm "
+                             f"{gnorm}, leaves without a gradient {missing}")
+    print(f"[phase 10a gradient] loss {float(loss):.6f}, grad norm "
+          f"{gnorm:.6f}, all {n_leaves} parameter leaves have a gradient")
+
+    step = make_train_step(model, **TRAIN_SCHEDULE)
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        _reset_peak(dev)
+        want_p, want_o, rows = train_steps(
+            step, params, adamw_init(params), loader(), TRAIN_STRAIGHT, dev)
+        _sync(dev)
+        peak_train = _peak_gb(dev)
+        half = TRAIN_STRAIGHT // 2
+        ld = loader()
+        p, o, _ = train_steps(step, init(), adamw_init(params), ld, half,
+                              dev)
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            saver = CheckpointManager(d)
+            saver.save(half, {"params": p, "opt": o},
+                       {"loader": ld.state_dict(), "step": half})
+            t_save_call = time.perf_counter() - t0
+            target = tree_map(torch.empty_like, {"params": p, "opt": o})
+            del p, o
+            saver.wait()
+            t_save = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            state, extra = CheckpointManager(d).restore(target)
+            _sync(dev)
+            t_restore = time.perf_counter() - t1
+            size = sum(os.path.getsize(os.path.join(r, f))
+                       for r, _, fs in os.walk(d) for f in fs)
+        ld2 = loader()
+        ld2.load_state_dict(extra["loader"])
+        got_p, got_o, rows_c = train_steps(step, state["params"],
+                                           state["opt"], ld2,
+                                           TRAIN_STRAIGHT - half, dev)
+        del state, target
+        bad = [i for i, (a, b) in enumerate(zip(
+            tree_leaves((want_p, want_o)), tree_leaves((got_p, got_o))))
+            if a.dtype != b.dtype or not torch.equal(a, b)]
+        losses_equal = [r[0] for r in rows[half:]] == [r[0] for r in rows_c]
+        print(f"[phase 10a resume] {TRAIN_STRAIGHT} straight steps against "
+              f"{half} + checkpoint ({size / 1e9:.3f} GB; save call "
+              f"{t_save_call:.2f} s, written {t_save:.2f} s, restore "
+              f"{t_restore:.2f} s) + "
+              f"{TRAIN_STRAIGHT - half}: {len(bad)} of "
+              f"{len(tree_leaves((want_p, want_o)))} leaves differ "
+              f"(params, m, v, step); resumed losses bitwise the straight "
+              f"run's: {losses_equal}")
+        if bad or not losses_equal or extra["step"] != half:
+            raise AssertionError(f"phase 10a: the resumed run is not the "
+                                 f"straight one (leaves {bad[:8]})")
+        del want_p, want_o
+        torch.use_deterministic_algorithms(False)
+        got_p, got_o, rows_off = train_steps(step, got_p, got_o, ld2, 3, dev)
+        if dev.type == "cuda":
+            train_trace(step, got_p, got_o, ld2, dev)
+    finally:
+        torch.use_deterministic_algorithms(det)
+    losses = [r[0] for r in rows]
+    if not all(math.isfinite(x) for x in losses) or \
+            not all(math.isfinite(r[1]) and r[1] > 0 for r in rows):
+        raise AssertionError(f"phase 10a: losses {losses}")
+    warm = statistics.median(r[2] for r in rows[1:])
+    off = statistics.median(r[2] for r in rows_off[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[phase 10a train] {cfg.name} {cfg.dtype}, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, remat: loss {losses[0]:.6f} -> {losses[-1]:.6f} "
+          f"over {TRAIN_STRAIGHT} steps, grad norm "
+          f"{', '.join(f'{r[1]:.4f}' for r in rows)}; step ms "
+          f"{', '.join(f'{r[2]:.1f}' for r in rows)} (deterministic; "
+          f"median warm {warm:.2f}, {tokens / (warm / 1e3):.1f} tokens/s); "
+          f"deterministic off {', '.join(f'{r[2]:.1f}' for r in rows_off)}"
+          f" (median warm {off:.2f}, cost of the mode "
+          f"{(warm - off) / off:+.1%})")
+    print(f"[memory] phase 10a peak {peak_init:.3f} GB after init, "
+          f"{peak_train:.3f} GB during training")
+
+
+def train_trace(step_fn, params, opt, loader, dev) -> None:
+    """One warm train step under torch.profiler (CUDA activity): its device
+    ms by kernel against its host-timed ms, the idle share, the number of
+    kernel launches, and the kernels that take most of the time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    batch = {"tokens": torch.as_tensor(next(loader)["tokens"],
+                                       dtype=torch.long, device=dev)}
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, opt, batch)
+        _sync(dev)
+        host_ms = (time.perf_counter() - t0) * 1e3
+    per, launches = {}, 0
+    for e in prof.key_averages():
+        t_us = getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+        if t_us > 0:
+            per[e.key[:60]] = per.get(e.key[:60], 0.0) + t_us / 1e3
+            launches += e.count
+    busy = sum(per.values())
+    top = ", ".join(f"{name.strip()} {ms:.1f}" for name, ms in
+                    sorted(per.items(), key=lambda kv: -kv[1])[:8])
+    print(f"[trace] train step: {busy:.1f} ms of device time in {launches} "
+          f"kernel launches against {host_ms:.1f} ms on the host's clock "
+          f"(profiled; idle share {max(0.0, 1 - busy / host_ms):.2f}); "
+          f"most: {top}")
+
+
+class _Tee:
+    """stdout that is also kept, so a CLI's printed lines can be read."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def run_cli(main, argv: list) -> str:
+    """main(argv), which must return 0; returns what it printed."""
+    import contextlib
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{main.__module__} {argv}: exit {rc}")
+    return tee.text()
+
+
+def cli_phase(cfg, dev, extra_args: list):
+    """Phase 10b: train.main for 2 steps, then --steps 4 --resume auto
+    (step 2 and the loader restored, steps 2-3 with finite losses, step 4
+    saved); convert.main --cmoe CMOE, restored leaf for leaf bitwise the
+    in-memory conversion of the same seed, which is returned (model,
+    params) for 10c."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.convert import convert_dense_model
+    from repro_torch.data import make_calibration_batch
+    from repro_torch.launch import convert as convert_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_leaves, tree_map
+
+    with tempfile.TemporaryDirectory() as d:
+        base = extra_args + TRAIN_CLI_ARGS + ["--ckpt-dir", d]
+        t0 = time.perf_counter()
+        run_cli(train_cli.main, base + ["--steps", "2"])
+        t1 = time.perf_counter()
+        text = run_cli(train_cli.main, base + ["--steps", "4"])
+        t2 = time.perf_counter()
+        steps = [ln.split() for ln in text.splitlines()
+                 if ln.startswith("step ")]
+        mgr = CheckpointManager(d)
+        with open(os.path.join(d, "ckpt_00000004", "manifest.json")) as f:
+            extra = json.load(f)["extra_state"]
+        ok = "[resume] restored step 2" in text and \
+            [int(x[1]) for x in steps] == [2, 3] and \
+            all(math.isfinite(float(x[3])) for x in steps) and \
+            mgr.all_steps() == [2, 4] and \
+            extra == {"loader": {"step": 4}, "step": 4}
+        print(f"[phase 10b train CLI] 2 steps {t1 - t0:.2f} s, resumed to 4 "
+              f"{t2 - t1:.2f} s (both with model init and the final save); "
+              f"steps {[int(x[1]) for x in steps]} losses "
+              f"{[float(x[3]) for x in steps]}, checkpoints "
+              f"{mgr.all_steps()}, step 4's extra state {extra}")
+        if not ok:
+            raise AssertionError("phase 10b: the train CLI's resume")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        run_cli(convert_cli.main, extra_args + ["--cmoe", CMOE, "--out", d])
+        t1 = time.perf_counter()
+        model = build_model(cfg, use_kernel=False, device=dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        params = model.init(g)
+        args = convert_cli.parser().parse_args(extra_args + ["--cmoe", CMOE])
+        cm = convert_cli.conversion_config(cfg, args)
+        calib = make_calibration_batch(cfg.vocab_size, args.calib_samples,
+                                       args.calib_seq, seed=1234)
+        with torch.no_grad():
+            m2, p2, rep = convert_dense_model(
+                model, params, {"tokens": torch.as_tensor(
+                    calib["tokens"], dtype=torch.long, device=dev)}, cm)
+        del model, params
+        state, extra = CheckpointManager(d).restore(
+            {"params": tree_map(torch.empty_like, p2)})
+        bad = [path for (path, a), b in zip(
+            _paths(p2), tree_leaves(state["params"]))
+            if a.dtype != b.dtype or not torch.equal(a, b)]
+        print(f"[phase 10b convert CLI] {cm.tag()} in {t1 - t0:.2f} s "
+              f"(the in-memory conversion {rep.seconds_total:.2f} s: "
+              f"profile {rep.seconds_profile:.2f}, cluster "
+              f"{rep.seconds_cluster:.2f}); extra state {extra}; "
+              f"{len(bad)} of {len(tree_leaves(p2))} restored leaves differ "
+              f"from the in-memory conversion")
+        if bad or extra != {"arch": args.arch, "cmoe": cm.tag(),
+                            "smoke": args.smoke}:
+            raise AssertionError(f"phase 10b: convert CLI leaves {bad[:8]}")
+    return m2, p2
+
+
+def converted_finetune(m2, p2, dev) -> None:
+    """Phase 10c: the converted model's gradient (u non-zero in every
+    layer; the balance bias the only leaf without one), moe_load's shape,
+    TRAIN_CONVERTED_STEPS steps with the balance update (each bias moves
+    by 0 or +-BALANCE_GAMMA), and LoRA: B = 0 merges to the base loss bit
+    for bit, and one AdamW step on the adapters lowers the loss."""
+    import statistics
+
+    import torch
+
+    from repro_torch.data import ShardedLoader
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.optim import (adamw_init, adamw_update, init_lora,
+                                   merge_lora)
+
+    cfg = m2.cfg
+    n_r = cfg.cmoe.num_routed
+    ld = ShardedLoader(cfg.vocab_size, *TRAIN_CONVERTED_BATCH, seed=1)
+    batch = {"tokens": torch.as_tensor(ld._batch_at(0), dtype=torch.long,
+                                       device=dev)}
+    t0 = time.perf_counter()
+    (loss, met), grads = value_and_grad(lambda p: m2.loss(p, batch), p2,
+                                        fill=False)
+    _sync(dev)
+    t_grad = time.perf_counter() - t0
+    u = grads["blocks"]["cmoe"]["u"]
+    layers_u = int((u != 0).any(-1).sum())
+    missing = [path for path, g in _paths(grads) if g is None]
+    load_shape = tuple(met["moe_load"].shape)
+    del grads
+    print(f"[phase 10c gradient] {cfg.name} {cfg.cmoe.tag()}, "
+          f"{TRAIN_CONVERTED_BATCH[0]} x {TRAIN_CONVERTED_BATCH[1]}: loss "
+          f"{float(loss):.6f} ({t_grad:.2f} s with the backward); cmoe.u's "
+          f"gradient non-zero in {layers_u} of {cfg.num_layers} layers "
+          f"(max |g| {float(u.abs().max()):.3e}); leaves without a "
+          f"gradient {missing}; moe_load {load_shape}")
+    if layers_u != cfg.num_layers or missing != ["/blocks/cmoe/bias"] or \
+            load_shape != (cfg.num_layers, n_r):
+        raise AssertionError("phase 10c: the converted model's gradient")
+    step = make_train_step(m2, lr=3e-4, warmup=1,
+                           total=TRAIN_CONVERTED_STEPS)
+    p3, _, rows = train_steps(step, p2, adamw_init(p2), ld,
+                              TRAIN_CONVERTED_STEPS, dev,
+                              gamma=BALANCE_GAMMA)
+    del p3
+    moves = []
+    for _, _, _, (delta, load) in rows:
+        off = (delta.abs() - BALANCE_GAMMA).abs()
+        ok = bool(((delta == 0) | (off <= 1e-9)).all()) and \
+            bool((delta != 0).any())
+        moves.append((int((delta > 0).sum()), int((delta < 0).sum()), ok))
+    print(f"[phase 10c train] {TRAIN_CONVERTED_STEPS} steps: losses "
+          f"{[round(r[0], 6) for r in rows]}, ms "
+          f"{[round(r[2], 1) for r in rows]} (median "
+          f"{statistics.median(r[2] for r in rows):.1f}); balance update "
+          f"(bias entries up, down, all moves 0 or +-{BALANCE_GAMMA}): "
+          f"{moves}")
+    if not all(m[2] for m in moves) or \
+            not all(math.isfinite(r[0]) for r in rows):
+        raise AssertionError("phase 10c: the balance update")
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    lora = init_lora(p2, g, rank=LORA_RANK)
+    with torch.no_grad():
+        base = m2.loss(p2, batch)[0]
+        merged = m2.loss(merge_lora(p2, lora, alpha=LORA_ALPHA,
+                                    rank=LORA_RANK), batch)[0]
+    (l0, _), lg = value_and_grad(
+        lambda lo: m2.loss(merge_lora(p2, lo, alpha=LORA_ALPHA,
+                                      rank=LORA_RANK), batch), lora)
+    lora2, _, om = adamw_update(lg, adamw_init(lora), lora,
+                                lr=torch.tensor(LORA_LR, device=dev))
+    del lg
+    with torch.no_grad():
+        l1 = m2.loss(merge_lora(p2, lora2, alpha=LORA_ALPHA,
+                                rank=LORA_RANK), batch)[0]
+    print(f"[phase 10c lora] rank {LORA_RANK}, alpha {LORA_ALPHA}: loss "
+          f"with B = 0 {float(merged):.6f}, base {float(base):.6f} "
+          f"(bitwise {bool(torch.equal(merged, base))}); one AdamW step "
+          f"(lr {LORA_LR}) on the adapters alone: {float(l0):.6f} -> "
+          f"{float(l1):.6f} (adapter grad norm {float(om['grad_norm']):.4e})")
+    if not torch.equal(merged, base) or not float(l1) < float(l0):
+        raise AssertionError("phase 10c: LoRA")
+
+
+def train_f32_agreement(cfg, dev) -> None:
+    """Phase 10d: float32, TRAIN_F32_LAYERS layers, TF32 off: the loss and
+    every gradient leaf on the card against the port on the CPU, one set
+    of weights."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import override
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_map
+
+    cfg = override(cfg, dtype="float32", num_layers=TRAIN_F32_LAYERS)
+    cpu = build_model(cfg, use_kernel=False, device="cpu")
+    card = build_model(cfg, use_kernel=False, device=dev)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_F32_TOKENS[0], TRAIN_F32_TOKENS[1] + 1)))
+    t0 = time.perf_counter()
+    (lc, _), gc_ = value_and_grad(lambda p: cpu.loss(p, {"tokens": tokens}),
+                                  params, fill=False)
+    t1 = time.perf_counter()
+    (lg, _), gg = value_and_grad(
+        lambda p: card.loss(p, {"tokens": tokens.to(dev)}),
+        tree_map(lambda a: a.to(dev), params), fill=False)
+    _sync(dev)
+    rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    worst, where = 0.0, None
+    for (path, a), (_, b) in zip(_paths(gc_), _paths(gg)):
+        r = float((b.cpu() - a).abs().max() / a.abs().max())
+        if r > worst:
+            worst, where = r, path
+    print(f"[phase 10d f32] {cfg.name} at {TRAIN_F32_LAYERS} layers, "
+          f"{TRAIN_F32_TOKENS[0]} x {TRAIN_F32_TOKENS[1]} tokens, TF32 off: "
+          f"loss card {float(lg):.8f} CPU {float(lc):.8f} (|d| / loss "
+          f"{rel:.3e}, tol {TRAIN_LOSS_TOL}); worst leaf max|dg| / max|g| "
+          f"{worst:.3e} at {where} (tol {TRAIN_GRAD_TOL}); CPU side "
+          f"{t1 - t0:.2f} s")
+    if rel > TRAIN_LOSS_TOL or worst > TRAIN_GRAD_TOL:
+        raise AssertionError("phase 10d: card and CPU disagree")
+
+
+def training_phase(cfg, dev, cli_args: list, took=None) -> dict:
+    """Phase 10 (see the module docstring): 10a-10d in order, launch
+    counts zeroed before and read after; every count must be 0. Returns
+    the counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    def mark(tag):
+        if took is not None:
+            took(tag)
+
+    def free(what):
+        if dev.type == "cuda":
+            free_device(what)
+
+    free("phase 10 training")
+    _sync(dev)
+    ops.reset_launches()
+    print(f"[cut] {cfg.name}: none in 10a-10c, all {cfg.num_layers} layers "
+          f"(d_model {cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}); 10d at {TRAIN_F32_LAYERS} "
+          f"layers in float32")
+    train_resume(cfg, dev)
+    mark("10a")
+    free("phase 10b")
+    m2, p2 = cli_phase(cfg, dev, cli_args)
+    mark("10b")
+    converted_finetune(m2, p2, dev)
+    del m2, p2
+    mark("10c")
+    free("phase 10d")
+    train_f32_agreement(cfg, dev)
+    mark("10d")
+    _sync(dev)
+    launches = dict(ops.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"phase 10: a kernel ran on the training "
+                             f"path, which has none: {launches}")
+    print(f"[phase 10 launches] {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4280,6 +4806,14 @@ def main(argv=None) -> int:
         for name, n in counts.items():
             records[name][f"launches_whisper_{run}"] = n
     took("9")
+
+    # phase 10: training qwen1.5-0.5b at full width and depth, the train
+    # and convert CLIs, the converted fine-tune, f32 card against CPU
+    from repro_torch.configs import get_config
+    counts = training_phase(get_config(ARCH), torch.device("cuda"), [],
+                            took=took)
+    for name, n in counts.items():
+        records[name]["launches_train"] = n
 
     print(smi)
     print(json.dumps({"kernels": list(records.values())}))

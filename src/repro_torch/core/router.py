@@ -1,6 +1,6 @@
 """Analytical router (paper §4.2) and gating with learnable scaling and the
-aux-loss-free load-balance bias (paper §4.3, Eq. 9). Port of
-``repro/core/router.py``."""
+aux-loss-free load-balance bias (paper §4.3, Eq. 9) and its out-of-band
+update. Port of ``repro/core/router.py``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -72,3 +72,13 @@ def expert_load(idx: torch.Tensor, keep: torch.Tensor, num_experts: int
                       keep.reshape(-1).float())
     counts = counts[:num_experts]
     return counts / torch.clamp(counts.sum(), min=1.0)
+
+
+def update_balance_bias(bias: torch.Tensor, load: torch.Tensor,
+                        gamma: float) -> torch.Tensor:
+    """b_i += gamma if underloaded (p_i < p*), -= gamma if overloaded
+    (paper §4.3). load: (N_r,) utilization fractions summing ~1. An
+    out-of-band update: no gradient flows through it."""
+    n = bias.shape[0]
+    p_star = 1.0 / n
+    return bias + gamma * torch.sign(p_star - load)

@@ -1,13 +1,14 @@
-"""Attention, forward only: GQA and deepseek-v2's multi-head latent
-attention (MLA), with chunked (flash-style) causal attention, per-slot
-(ragged) attention against a contiguous cache, and the paged block-pool
-cache of the serving engine.
+"""Attention: GQA and deepseek-v2's multi-head latent attention (MLA),
+with chunked (flash-style) causal attention and its flash-style backward,
+per-slot (ragged) attention against a contiguous cache, and the paged
+block-pool cache of the serving engine.
 
-Port of ``repro/models/attention.py`` (the training backward is not
-ported). Written as plain tensor code (no fused attention operator) around
-the two attention kernels: the chunked forward keeps the reference's online
-softmax over KV chunks, with the same rounding points, and masks the keys
-its padding adds.
+Port of ``repro/models/attention.py``. Written as plain tensor code (no
+fused attention operator) around the two attention kernels: the chunked
+forward keeps the reference's online softmax over KV chunks, with the same
+rounding points, and masks the keys its padding adds; its backward (an
+autograd Function, the reference's custom VJP) recomputes score blocks
+from the saved per-row lse.
 """
 from __future__ import annotations
 
@@ -40,31 +41,21 @@ def _mask_block(qp: torch.Tensor, kp: torch.Tensor, *, causal: bool,
     return mask
 
 
-def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True, window: int = 0,
-                      q_offset: int = 0, chunk_q: int = 1024,
-                      chunk_kv: int = 1024,
-                      scale: Optional[float] = None) -> torch.Tensor:
-    """Flash-style attention forward. q: (B, S, H, D); k, v: (B, T, KH, D).
-    Returns (B, S, H, Dv). ``window`` 0 is full attention; ``q_offset`` is
-    the absolute position of q[:, 0] (a prefill continuing a cache)."""
+def _flash_forward(q, k, v, causal: bool, window: int, q_offset: int,
+                   chunk_q: int, chunk_kv: int, scale: float, t_valid: int,
+                   with_lse: bool = False):
+    """The blocked online-softmax forward. q: (B, S, H, D); k, v: (B, nkv *
+    chunk_kv, H, D) (padded past t_valid). Returns out (B, S, H, Dv) in v's
+    dtype and, with ``with_lse``, the per-row log-sum-exp (B, H, S) float32
+    (1e30 where a row kept no mass), which is all the backward needs;
+    None without it."""
     b, s, h, d = q.shape
-    t = k.shape[1]
     dv = v.shape[-1]
-    scale = scale if scale is not None else d ** -0.5
-    k = _repeat_kv(k, h)
-    v = _repeat_kv(v, h)
-    chunk_q = min(chunk_q, s)
-    chunk_kv = min(chunk_kv, t)
     nq = -(-s // chunk_q)
-    nkv = -(-t // chunk_kv)
-    pad_kv = nkv * chunk_kv - t
-    if pad_kv:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_kv))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_kv))
+    nkv = k.shape[1] // chunk_kv
     kv_pos = torch.arange(nkv * chunk_kv, dtype=torch.float32,
                           device=q.device)
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qb = q[:, qi * chunk_q:(qi + 1) * chunk_q].float()   # (B, cq, H, D)
         cq = qb.shape[1]
@@ -81,7 +72,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             kb, vb = k[:, sl], v[:, sl]
             s_blk = torch.einsum("bqhd,bkhd->bhqk", qb, kb.float()) * scale
             mask = _mask_block(qp, kv_pos[sl], causal=causal, window=window,
-                               t_valid=t)
+                               t_valid=t_valid)
             s_blk = torch.where(mask[None, None], s_blk,
                                 torch.full_like(s_blk, NEG_INF))
             m_new = torch.maximum(m, s_blk.amax(dim=-1))
@@ -93,7 +84,123 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.transpose(1, 2).to(v.dtype))          # (B, cq, H, Dv)
-    return torch.cat(outs, dim=1)
+        if with_lse:
+            lses.append(torch.where(l > 0, m + torch.log(torch.clamp(
+                l, min=1e-30)), torch.full_like(l, 1e30)))
+    lse = torch.cat(lses, dim=-1) if with_lse else None
+    return torch.cat(outs, dim=1), lse
+
+
+def _flash_backward(q, k, v, out, lse, g, causal: bool, window: int,
+                    q_offset: int, chunk_q: int, chunk_kv: int, scale: float,
+                    t_valid: int):
+    """The flash-style backward: score blocks recomputed from q, k and the
+    saved lse, never the (S, T) probabilities. Pass 1 accumulates dq over
+    kv blocks, pass 2 dk and dv over q blocks, both in float32 with delta =
+    rowsum(g * out); the results are cast to the inputs' dtypes."""
+    b, s, h, d = q.shape
+    nq = -(-s // chunk_q)
+    nkv = k.shape[1] // chunk_kv
+    kv_pos = torch.arange(nkv * chunk_kv, dtype=torch.float32,
+                          device=q.device)
+    q_pos = float(q_offset) + torch.arange(s, dtype=torch.float32,
+                                           device=q.device)
+    gf = g.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", gf, out.float())   # (B, H, S)
+    qsl = [slice(i * chunk_q, (i + 1) * chunk_q) for i in range(nq)]
+    ksl = [slice(i * chunk_kv, (i + 1) * chunk_kv) for i in range(nkv)]
+
+    def p_block(qs, ks):
+        s_blk = torch.einsum("bqhd,bkhd->bhqk", q[:, qs].float(),
+                             k[:, ks].float()) * scale
+        mask = _mask_block(q_pos[qs], kv_pos[ks], causal=causal,
+                           window=window, t_valid=t_valid)
+        s_blk = torch.where(mask[None, None], s_blk,
+                            torch.full_like(s_blk, NEG_INF))
+        return torch.exp(s_blk - lse[:, :, qs, None])           # (B,H,cq,ck)
+
+    def ds_block(p, qs, ks):
+        dp = torch.einsum("bqhd,bkhd->bhqk", gf[:, qs], v[:, ks].float())
+        return p * (dp - delta[:, :, qs, None])
+
+    dq = []
+    for qs in qsl:                       # pass 1: dq over the kv blocks
+        acc = torch.zeros_like(q[:, qs], dtype=torch.float32)
+        for ks in ksl:
+            ds = ds_block(p_block(qs, ks), qs, ks)
+            acc = acc + torch.einsum("bhqk,bkhd->bqhd", ds,
+                                     k[:, ks].float()) * scale
+        dq.append(acc)
+    dk, dv = [], []
+    for ks in ksl:                       # pass 2: dk, dv over the q blocks
+        acc_k = torch.zeros_like(k[:, ks], dtype=torch.float32)
+        acc_v = torch.zeros_like(v[:, ks], dtype=torch.float32)
+        for qs in qsl:
+            p = p_block(qs, ks)
+            acc_v = acc_v + torch.einsum("bhqk,bqhd->bkhd", p, gf[:, qs])
+            ds = ds_block(p, qs, ks)
+            acc_k = acc_k + torch.einsum("bhqk,bqhd->bkhd", ds,
+                                         q[:, qs].float()) * scale
+        dk.append(acc_k)
+        dv.append(acc_v)
+    return (torch.cat(dq, dim=1).to(q.dtype), torch.cat(dk, dim=1).to(k.dtype),
+            torch.cat(dv, dim=1).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Blocked attention with a flash-style forward and backward (the
+    reference's ``_flash`` custom VJP): the forward saves q, k, v, out and
+    the per-row lse; the backward recomputes score blocks. window and
+    q_offset take no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, chunk_q, chunk_kv,
+                scale, t_valid):
+        out, lse = _flash_forward(q, k, v, causal, window, q_offset,
+                                  chunk_q, chunk_kv, scale, t_valid,
+                                  with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_offset, chunk_q, chunk_kv, scale,
+                    t_valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, g, *ctx.args)
+        return (dq, dk, dv) + (None,) * 7
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      q_offset: int = 0, chunk_q: int = 1024,
+                      chunk_kv: int = 1024,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Flash-style attention, forward and backward. q: (B, S, H, D); k, v:
+    (B, T, KH, D). Returns (B, S, H, Dv). ``window`` 0 is full attention;
+    ``q_offset`` is the absolute position of q[:, 0] (a prefill continuing
+    a cache). The GQA repeat and the kv padding stay outside the autograd
+    Function, so autograd sums dk and dv over repeated heads. Only a call
+    that autograd records goes through the Function and builds the lse
+    (the reference's custom-VJP forward); any other runs the plain forward
+    (its primal), with the same output."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    k = _repeat_kv(k, h)
+    v = _repeat_kv(v, h)
+    chunk_q = min(chunk_q, s)
+    chunk_kv = min(chunk_kv, t)
+    nkv = -(-t // chunk_kv)
+    pad_kv = nkv * chunk_kv - t
+    if pad_kv:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_kv))
+    args = (causal, int(window), int(q_offset), chunk_q, chunk_kv, scale, t)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, *args)
+    return _flash_forward(q, k, v, *args)[0]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -61,13 +61,18 @@ def _one_call_ok(x: torch.Tensor, w: torch.Tensor) -> bool:
     key = (x.dtype, w.dtype, w.shape, w.stride(), w.device)
     ok = _ONE_CALL_OK.get(key)
     if ok is None:
-        g = torch.Generator(device=w.device)
-        g.manual_seed(0)
-        probe = torch.randn((PROBE_ROWS, w.shape[0]), generator=g,
-                            device=w.device).to(x.dtype)
-        full = torch.matmul(probe, w)
-        diff = torch.stack([(torch.matmul(probe[:m], w) != full[:m]).any()
-                            for m in range(1, PROBE_ROWS)])
+        # outside autograd: a probe made inside a checkpointed layer would
+        # save tensors its recomputation (a cache hit) does not
+        with torch.no_grad():
+            w = w.detach()
+            g = torch.Generator(device=w.device)
+            g.manual_seed(0)
+            probe = torch.randn((PROBE_ROWS, w.shape[0]), generator=g,
+                                device=w.device).to(x.dtype)
+            full = torch.matmul(probe, w)
+            diff = torch.stack([(torch.matmul(probe[:m], w) !=
+                                 full[:m]).any()
+                                for m in range(1, PROBE_ROWS)])
         ok = _ONE_CALL_OK[key] = not bool(diff.any())
     return ok
 

@@ -22,7 +22,9 @@ is the reference's {"self": (k, v) of (L, B, T, KH, hd), "cross": (k, v)
 of (L, B, F, KH, hd)}, the decoder's own keys and each layer's projection
 of the encoder's F frames. ``step`` updates every cache in place; the
 audio family is served by ``prefill`` and ``decode_step`` only, as in the
-reference.
+reference. ``loss`` is the training objective (the sequence-chunked
+cross-entropy, each layer under activation checkpointing when ``remat``),
+differentiated by autograd on a model whose kernels are off.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ops import resolve_device
@@ -46,13 +49,21 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
-def tree_map(fn, tree):
-    """Apply fn to every tensor leaf of a nested dict/tuple/list."""
+def tree_map(fn, tree, *rest):
+    """Apply fn to every tensor leaf of a nested dict/tuple/list (and the
+    matching leaves of ``rest``, trees of the same structure). None is an
+    empty subtree, as in JAX: it maps to None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        vals = [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") \
+            else type(tree)(vals)
+    return fn(tree, *rest)
 
 
 def tree_stack(trees: list):
@@ -112,6 +123,10 @@ def hybrid_attn_layers(cfg: ModelConfig) -> tuple[list, list, int]:
 
 
 def tree_leaves(tree) -> list:
+    """The tensor leaves in one fixed order (dicts in insertion order);
+    None holds no leaf."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, (tuple, list)):
@@ -261,15 +276,19 @@ class Model:
                cache_pos=None, capture: bool = False,
                phase: str = "prefill", backend: Optional[str] = None,
                token_valid=None, block_tables=None, row_slots=None,
-               row_k=None, cross=None):
+               row_k=None, cross=None, remat: bool = False):
         """Run the layer stack. ``cache_pos`` is an int shared by the batch
         or a per-slot (B,) tensor. ``cross`` feeds the audio family's
         cross-attention: the encoder's output (B, F, d), which each layer
         projects, or the projected (k, v) of (L, B, F, KH, hd), one slice a
-        layer. Returns (x, caches, aux) with
-        aux["ffn_in"] stacked over layers when ``capture`` (for an
+        layer. ``remat`` runs each layer under activation checkpointing
+        (only its input is kept; the backward recomputes the rest), the
+        reference's ``_maybe_remat(body, True)``. Returns (x, caches, aux)
+        with aux["ffn_in"] stacked over layers when ``capture`` (for an
         interleaved stack a dict {"moe", "dense"}, each stacked over its
-        own layers) and aux["dropped"] summed over layers."""
+        own layers), aux["dropped"] summed over layers and aux["load"] the
+        routed layers' expert utilization stacked as (L, E) (an
+        interleaved stack's MoE layers only)."""
         cfg = self.cfg
         seq = x.shape[1]
         if isinstance(cache_pos, torch.Tensor):
@@ -288,9 +307,9 @@ class Model:
                         token_valid=token_valid, block_table=block_tables,
                         row_slots=row_slots, row_k=row_k)
         if cfg.family == "hybrid":
-            return self._stack_hybrid(params, x, base, caches)
+            return self._stack_hybrid(params, x, base, caches, remat)
         taps: dict[str, list] = {}
-        dropped = []
+        dropped, loads = [], []
         for li, (block_fn, blocks, i, window, tap) in enumerate(
                 self._layers(params)):
             p = tree_map(lambda a: a[i], blocks)
@@ -298,18 +317,23 @@ class Model:
                 (caches[0][li], caches[1][li])
             cross_l = cross if not isinstance(cross, tuple) else \
                 (cross[0][li], cross[1][li])
-            x, _, aux = block_fn(x, p, cfg, base._replace(
-                cache=cache_l, window=window, cross_kv=cross_l))
+            x, _, aux = _maybe_remat(block_fn, remat)(
+                x, p, cfg, base._replace(cache=cache_l, window=window,
+                                         cross_kv=cross_l))
             if capture:
                 taps.setdefault(tap, []).append(aux["ffn_in"])
             if "dropped" in aux:
                 dropped.append(aux["dropped"])
+            if "load" in aux:
+                loads.append(aux["load"])
         out = {}
         if capture:
             out["ffn_in"] = {k: torch.stack(v) for k, v in taps.items()} \
                 if self.interleaved else torch.stack(taps[None])
         if dropped:
             out["dropped"] = torch.stack(dropped).sum()
+        if loads:
+            out["load"] = torch.stack(loads)
         return x, caches, out
 
     def _layers(self, params) -> list:
@@ -328,30 +352,39 @@ class Model:
                 for li, window in enumerate(layer_windows(cfg))]
 
     def _stack_hybrid(self, params, x: torch.Tensor, base: BlockCtx,
-                      caches):
+                      caches, remat: bool = False):
         """zamba2: the Mamba2 layers, and ONE shared attention + FFN block
         applied after every ``hybrid_attn_every``-th layer, with its own KV
         cache slice per application (``aidx``). Caches are updated in
         place; a Python ``if`` takes the place of the reference's
-        ``lax.cond``. Returns (x, caches, {})."""
+        ``lax.cond``. With ``remat`` each layer (its Mamba2 block and the
+        shared block after it) runs under one checkpoint, as the
+        reference's scan body. Returns (x, caches, {})."""
         cfg = self.cfg
         is_attn, app_idx, _ = hybrid_attn_layers(cfg)
         mamba_caches, attn_k, attn_v = (caches if caches is not None
                                         else (None, None, None))
         blocks = params["blocks"]
         shared = params["shared_attn"]
+
+        def layer(x, p, m_cache, ctx):
+            x, _, _ = B.mamba_block(x, p, cfg, base._replace(cache=m_cache))
+            if ctx is not None:
+                x, _, _ = B.dense_block(x, shared, cfg, ctx)
+            return x
+
         for li in range(cfg.num_layers):
             p = tree_map(lambda a: a[li], blocks)
             m_cache = None if mamba_caches is None else \
                 (mamba_caches[0][li], mamba_caches[1][li])
-            x, _, _ = B.mamba_block(x, p, cfg, base._replace(cache=m_cache))
+            ctx = None
             if is_attn[li]:
                 if attn_k is not None:
                     aidx = app_idx[li]
                     ctx = base._replace(cache=(attn_k[aidx], attn_v[aidx]))
                 else:
                     ctx = base._replace(cache=None, cache_pos=None)
-                x, _, _ = B.dense_block(x, shared, cfg, ctx)
+            x = _maybe_remat(layer, remat)(x, p, m_cache, ctx)
         return x, caches, {}
 
     # ------------------------------------------------------------ public
@@ -383,6 +416,44 @@ class Model:
         _, _, aux = self._stack(params, x, capture=True,
                                 cross=self._enc_out(params, batch))
         return aux["ffn_in"]
+
+    def loss(self, params, batch, *, remat: bool = True,
+             ce_chunk: int = 512):
+        """Next-token cross-entropy, the logits computed a sequence chunk at
+        a time (never (B, S, V)). Reads ``tokens[:, :-1]`` and predicts
+        ``tokens[:, 1:]``; the VLM family's patch positions are masked out
+        of the mean, the audio family's encoder runs over
+        ``batch["frames"]``. Returns (loss, metrics), metrics["moe_load"]
+        the routed layers' (L, E) utilization where the model has routed
+        experts.
+
+        Raises when the model's kernels are on and autograd is recording:
+        the CUDA wrappers return tensors with no autograd graph, so a loss
+        through them would leave the FFN and attention weights without
+        gradients (the reference's kernels have no VJP either). Build a
+        model to train with ``use_kernel=False``."""
+        if self.use_kernel and torch.is_grad_enabled():
+            raise RuntimeError(
+                "Model.loss with use_kernel=True under autograd: the kernels "
+                "have no backward, so their weights would get no gradient; "
+                "build the model with use_kernel=False to train")
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = self._embed(params, {**batch, "tokens": tokens[:, :-1]})
+        x, _, aux = self._stack(params, x, cross=self._enc_out(params, batch),
+                                remat=remat)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        targets = tokens[:, 1:]
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=x.device)
+        if cfg.family == "vlm" and "patches" in batch:
+            mask[:, :batch["patches"].shape[1]] = 0.0
+        loss = chunked_ce(x, self._head(params), cfg.tie_embeddings,
+                          targets, mask, chunk=ce_chunk)
+        metrics = {}
+        if "load" in aux:
+            metrics["moe_load"] = aux["load"]             # (L, E)
+        return loss, metrics
 
     # ------------------------------------------------------------ caches
 
@@ -563,6 +634,44 @@ class Model:
         (B, 1, d): the final norm, then the head."""
         xl = rms_norm(xl, params["final_norm"], self.cfg.norm_eps)
         return unembed(xl, self._head(params), self.cfg.tie_embeddings)[:, 0]
+
+
+def _maybe_remat(fn, remat: bool):
+    """fn itself, or fn under non-reentrant activation checkpointing: only
+    its inputs are kept, and the backward recomputes its activations."""
+    if not remat:
+        return fn
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False)
+
+
+def chunked_ce(x: torch.Tensor, head: torch.Tensor, tied: bool,
+               targets: torch.Tensor, mask: torch.Tensor, chunk: int = 512
+               ) -> torch.Tensor:
+    """Mean cross-entropy over the positions ``mask`` keeps, a chunk of
+    ``chunk`` positions at a time. Each chunk's float32 logits (B, chunk,
+    V) are made under a checkpoint, so the backward recomputes them and
+    (B, S, V) never exists. x: (B, S, d) after the final norm; targets,
+    mask: (B, S)."""
+    s = x.shape[1]
+    chunk = min(chunk, s)
+
+    def chunk_loss(xb, tb, mb, head):
+        logits = unembed(xb, head, tied).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tb[..., None].long())[..., 0]
+        return ((lse - gold) * mb).sum(), mb.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        nll, n = torch.utils.checkpoint.checkpoint(
+            chunk_loss, x[:, sl], targets[:, sl], mask[:, sl], head,
+            use_reentrant=False)
+        tot = tot + nll
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def build_model(cfg: ModelConfig, use_kernel: Optional[bool] = None,

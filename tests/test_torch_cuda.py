@@ -8,13 +8,19 @@ the JAX-importing conftest switched off:
 Tolerance: |err| <= 1e-4 max|ref| in float32 (the same fp32 products summed
 in another order), 2e-2 max|ref| in bfloat16 (h is rounded to bf16 before
 the down product in both, but from slightly different fp32 values)."""
-import pytest
-import torch
+import os
 
-from repro_torch.kernels import ops as tops
-from repro_torch.kernels.moe_gather import moe_gather_plain
-from repro_torch.kernels.moe_gmm import moe_gmm_ragged_plain
-from repro_torch.kernels.swiglu import swiglu_ffn_plain
+# cuBLAS is deterministic only with a fixed workspace, which must be set
+# before the first cuBLAS call (the training resume test checks bits)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels.moe_gather import moe_gather_plain  # noqa: E402
+from repro_torch.kernels.moe_gmm import moe_gmm_ragged_plain  # noqa: E402
+from repro_torch.kernels.swiglu import swiglu_ffn_plain  # noqa: E402
 
 
 @pytest.mark.cuda
@@ -1432,4 +1438,92 @@ def test_cuda_whisper_smoke_matches_cpu(frames):
             break
         lc, cc = cpu.decode_step(params, tc[:, None], cc, 24 + i)
         lg, cg = gpu.decode_step(pg, tg[:, None], cg, 24 + i)
+    torch.cuda.synchronize()
+
+
+@pytest.fixture
+def no_tf32():
+    """TF32 products off for one test, restored after it."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-v2-236b"])
+def test_cuda_loss_and_grads_match_cpu(arch, no_tf32):
+    """Model.loss and every gradient leaf of a smoke model in float32 (TF32
+    off) on the card against the port on the CPU, one set of weights:
+    the loss within 1e-5 relative, each leaf within 1e-4 of its max|g|
+    (leaves with no gradient, a balance bias, are None on both)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.config import override
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_leaves, tree_map
+    cfg = override(get_smoke_config(arch), dtype="float32")
+    cpu = build_model(cfg, use_kernel=False, device="cpu")
+    gpu = build_model(cfg, use_kernel=False, device="cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33),
+                           generator=torch.Generator().manual_seed(1))
+    (lc, _), gc = value_and_grad(lambda p: cpu.loss(p, {"tokens": tokens}),
+                                 params, fill=False)
+    (lg, _), gg = value_and_grad(
+        lambda p: gpu.loss(p, {"tokens": tokens.cuda()}),
+        tree_map(lambda a: a.cuda(), params), fill=False)
+    assert abs(lg.item() - lc.item()) <= 1e-5 * abs(lc.item())
+    for a, b in zip(tree_leaves(gc), tree_leaves(gg)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert (b.cpu() - a).abs().max() <= 1e-4 * a.abs().max()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_loss_refuses_kernels_and_resumes_bitwise(tmp_path):
+    """On the card a model builds with its kernels on, and Model.loss
+    refuses it under autograd; a kernel-free model's 4 train steps equal
+    2, a checkpoint round trip and 2 more, bit for bit, in deterministic
+    mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import override
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.optim import adamw_init
+    cfg = override(get_smoke_config("qwen1.5-0.5b"), dtype="bfloat16")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 4, 65), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(2))
+    kernel = build_model(cfg, device="cuda")
+    assert kernel.use_kernel
+    p = kernel.init(torch.Generator("cuda").manual_seed(0))
+    with pytest.raises(RuntimeError, match="use_kernel"):
+        kernel.loss(p, {"tokens": tokens[0]})
+    m = build_model(cfg, use_kernel=False, device="cuda")
+    step = make_train_step(m, lr=1e-3, warmup=1, total=4)
+    old = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        def run(params, opt, steps):
+            for i in steps:
+                params, opt, _ = step(params, opt, {"tokens": tokens[i]})
+            return params, opt
+
+        want = run(p, adamw_init(p), range(4))
+        half = run(p, adamw_init(p), range(2))
+        mgr = CheckpointManager(str(tmp_path))
+        mgr.save(2, {"params": half[0], "opt": half[1]}, block=True)
+        state, _ = mgr.restore({"params": p, "opt": adamw_init(p)})
+        got = run(state["params"], state["opt"], range(2, 4))
+    finally:
+        torch.use_deterministic_algorithms(old)
+    for a, b in zip(tree_leaves(want), tree_leaves(got)):
+        assert torch.equal(a, b)
     torch.cuda.synchronize()
